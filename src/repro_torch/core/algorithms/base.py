@@ -1,0 +1,181 @@
+"""The pluggable Algorithm API.
+
+Port of ``repro/core/algorithms/base.py``. An *algorithm* is everything
+that distinguishes one member of the elastic-SGD family from another: how
+per-replica state is initialized, how a mega-batch is partitioned, what
+happens to gradients/replicas inside a lockstep round, how replicas are
+merged at the barrier, and how batch sizes/learning rates adapt between
+mega-batches. ``ElasticTrainer`` drives whichever ``Algorithm`` the
+registry resolves from ``cfg.algorithm``.
+
+Hooks (host-side, except the ``RoundTransforms`` callables, which run
+inside every round):
+
+  * ``init_state_extras(cfg, params)`` → ``StateExtras``
+  * ``plan(scheduler, state, mega_samples, fetch_fn)`` → ``MegaBatchPlan``
+  * ``round_transforms(cfg)`` → ``RoundTransforms``
+  * ``merge(trainer, state, plan, replicas)`` → ``MergeOutcome``; the
+    trainer exposes ``merge_models`` and ``replica_norms``
+  * ``adapt(state, plan, cfg)`` → ``(new_b, new_lr)``
+  * ``merges_per_megabatch(plan)`` — merge costs charged to the clock
+  * ``resolve_n_replicas(requested)`` — clamp the replica count
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import numpy as np
+
+
+def replica_axis_name(cfg) -> Optional[str]:
+    """The collective axis a per-round hook must reduce over, or None.
+
+    Only the vmap placement is ported, where every replica lives in one
+    program and reductions over the leading R dim are already global, so
+    this is None; the sharded placement will name its process-group axis.
+    """
+    return None
+
+
+# --------------------------------------------------------------------------
+# hook result types
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StateExtras:
+    """Algorithm-specific slice of the initial ``ElasticState``: the (R,)
+    initial batch sizes (the trainer derives the initial lr from them by
+    the linear-scaling rule) and the Algorithm-2 global/prev-global copies
+    (None = merge directly on the replicas)."""
+
+    b: np.ndarray
+    global_model: Optional[dict] = None
+    prev_global: Optional[dict] = None
+
+
+@dataclass(frozen=True)
+class RoundTransforms:
+    """Per-round behavior, as plain callables run inside every round.
+
+    ``grad_transform(grads, update_mask) -> grads`` runs after the
+    per-replica gradients and before the SGD update (grads may hold
+    RowSparseGrad leaves); ``post_round(replicas) -> replicas`` runs after
+    the update. Masked replicas must stay consistent with the algorithm's
+    semantics: a transform must not leak a masked replica's (zero) gradient
+    into live ones.
+    """
+
+    grad_transform: Optional[Callable[[dict, Any], dict]] = None
+    post_round: Optional[Callable[[dict], dict]] = None
+
+
+@dataclass(frozen=True)
+class MergeOutcome:
+    """What the barrier produced: the (R, ...) replicas training continues
+    from, the global model for evaluation, and the Algorithm-2 diagnostics
+    (``alphas``/``pert_active``) for the metrics log."""
+
+    replicas: dict
+    global_model: dict
+    prev_global: Optional[dict] = None
+    alphas: Optional[np.ndarray] = None
+    pert_active: bool = False
+
+
+# --------------------------------------------------------------------------
+# the strategy protocol
+# --------------------------------------------------------------------------
+
+
+class Algorithm:
+    """Base strategy: K-step model averaging over a static equal plan.
+
+    Subclasses override only the hooks whose behavior differs.
+    """
+
+    #: registry key, set by @register
+    name: str = "?"
+
+    # ---- state ----
+    def init_state_extras(self, cfg, params) -> StateExtras:
+        # paper: initialize at b_max (Fig. 10a)
+        return StateExtras(b=np.full(cfg.n_replicas, float(cfg.b_max)))
+
+    # ---- planning ----
+    def plan(self, scheduler, state, mega_samples: int, fetch_fn):
+        """Default: static equal partitioning (the slowest replica
+        dictates the barrier, paper Fig. 3)."""
+        R = scheduler.cfg.n_replicas
+        per_rep = max(1, int(round(mega_samples / (R * state.b[0]))))
+        return scheduler.plan_static(int(state.b[0]), per_rep, fetch_fn=fetch_fn)
+
+    def _plan_dynamic(self, scheduler, state, mega_samples: int, fetch_fn):
+        """Availability-driven dispatch over the virtual clock (paper §3.1)."""
+        return scheduler.plan_megabatch(
+            np.round(state.b).astype(np.int64), mega_samples, fetch_fn=fetch_fn
+        )
+
+    # ---- per-round behavior ----
+    def round_transforms(self, cfg) -> RoundTransforms:
+        return RoundTransforms()
+
+    # ---- barrier ----
+    def merge(self, trainer, state, plan, replicas) -> MergeOutcome:
+        """Plain average of the replicas (no global-model momentum)."""
+        R = trainer.cfg.n_replicas
+        alphas = np.full(R, 1.0 / R)
+        new_global, new_replicas = trainer.merge_models(
+            replicas, alphas, None, None, 0.0
+        )
+        return MergeOutcome(
+            replicas=new_replicas, global_model=new_global, alphas=alphas
+        )
+
+    # ---- between-mega-batch adaptation ----
+    def adapt(self, state, plan, cfg):
+        return state.b, state.lr
+
+    # ---- accounting ----
+    def merges_per_megabatch(self, plan) -> int:
+        return 1
+
+    def resolve_n_replicas(self, requested: int) -> int:
+        return requested
+
+
+# --------------------------------------------------------------------------
+# registry
+# --------------------------------------------------------------------------
+
+_REGISTRY: dict[str, type[Algorithm]] = {}
+
+
+def register(name: str):
+    """Class decorator: ``@register("my_algo")`` on an Algorithm subclass."""
+
+    def deco(cls):
+        if not (isinstance(cls, type) and issubclass(cls, Algorithm)):
+            raise TypeError(f"{cls!r} must subclass Algorithm")
+        if name in _REGISTRY and _REGISTRY[name] is not cls:
+            raise ValueError(f"algorithm {name!r} already registered")
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def get(name: str) -> Algorithm:
+    """Resolve a registered algorithm to a fresh strategy instance."""
+    try:
+        return _REGISTRY[name]()
+    except KeyError:
+        raise KeyError(
+            f"unknown algorithm {name!r}; registered: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def available() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))

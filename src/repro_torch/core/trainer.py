@@ -1,0 +1,349 @@
+"""ElasticTrainer: the mega-batch training engine, in PyTorch.
+
+Port of ``repro/core/trainer.py`` for the vmap placement and the
+sequential mega-batch path. Everything that distinguishes one algorithm
+from another lives in the strategy the ``core/algorithms`` registry
+resolves from ``cfg.algorithm``; the engine drives it through its hooks:
+
+  init_state_extras → plan → round_transforms → merge → adapt
+
+Engine (the reference's scan engine): the plan's payloads are stacked
+into (n_rounds, R, ...) arrays and uploaded once per mega-batch; a Python
+loop runs the rounds on the device, each one a batched forward/backward
+over all R replicas and an in-place SGD update; the per-round loss /
+accuracy / sample counts reduce on the device with the reference's
+normalization, and the host reads them once per mega-batch. Rounds are not
+padded to a power of two: the reference's padding rounds are masked no-ops
+that only bound XLA recompiles.
+
+Device rule: ``device=None`` means CUDA and raises where there is none;
+the CPU runs only when asked for (``device="cpu"``), as the tests do. On
+the card the input layer and the merge run in the port's CUDA kernels.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ElasticConfig
+from repro_torch.core import adaptive_sgd as asgd
+from repro_torch.core import algorithms
+from repro_torch.core.heterogeneity import CostModel, SpeedModel
+from repro_torch.core.scheduler import DynamicScheduler
+from repro_torch.models.protocol import TrainableModel
+from repro_torch.optim.sgd import SGDConfig, init_momentum, sgd_update
+from repro_torch.utils import tree as tu
+from repro_torch.utils.logging import MetricsLog, log
+
+MERGE_COST = 5e-3  # virtual seconds charged per merge (the all-reduce)
+
+
+@dataclass
+class ElasticState:
+    replicas: dict                   # leaves (R, ...)
+    global_model: Optional[dict]
+    prev_global: Optional[dict]
+    momentum: Optional[dict]
+    b: np.ndarray                    # per-replica batch size (may be fractional)
+    lr: np.ndarray                   # per-replica learning rate
+    megabatch_idx: int = 0
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` -> the CUDA device, raising if there is none. On the card,
+    f32 matrix products and convolutions run in full f32: TF32 keeps about
+    three decimal digits and the reference computes in f32."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to train on the CPU"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def _to_device(arrays: dict, device: torch.device) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+@dataclass
+class ElasticTrainer:
+    model: TrainableModel
+    provider: Any
+    cfg: ElasticConfig
+    sgd: SGDConfig = field(default_factory=SGDConfig)
+    base_lr: float = 0.05
+    speed: Optional[SpeedModel] = None
+    seed: int = 0
+    device: Any = None               # None = CUDA (raises without a card)
+
+    def __post_init__(self):
+        if self.cfg.placement != "vmap":
+            raise ValueError(
+                f"only the 'vmap' placement is ported, got {self.cfg.placement!r}"
+            )
+        if self.model.sparse_grad_fn is None:
+            raise ValueError("the port trains through the model's sparse_grad_fn")
+        self.device = resolve_device(self.device)
+        self.algo = algorithms.get(self.cfg.algorithm)
+        if self.speed is None:
+            self.speed = SpeedModel(self.cfg.n_replicas, seed=self.seed)
+        self.cost = CostModel(self.speed)
+        self.scheduler = DynamicScheduler(self.cfg, self.cost)
+        self._transforms = self.algo.round_transforms(self.cfg)
+
+    # ------------------------------------------------------------------
+    # tensor math exposed to Algorithm.merge implementations
+    # ------------------------------------------------------------------
+    def merge_models(self, replicas, alphas, global_model, prev_global, gamma):
+        """Normalized merge (Alg. 2 tensor math): returns (new_global,
+        replicas reset to it). gamma=0 / None globals skip the
+        global-momentum term — a plain weighted average."""
+        new_global = asgd.normalized_merge(
+            replicas, alphas, global_model, prev_global, gamma
+        )
+        return new_global, tu.tree_broadcast_replicas(new_global, self.cfg.n_replicas)
+
+    def replica_norms(self, replicas) -> np.ndarray:
+        """(R,) per-replica L2 norms on the host (feeds Alg. 2's
+        perturbation condition)."""
+        return tu.tree_l2_norm_per_replica(replicas).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # state init
+    # ------------------------------------------------------------------
+    def init_state(self) -> ElasticState:
+        R = self.cfg.n_replicas
+        # a CPU generator: the same seed gives the same weights on every device
+        params = self.model.init(torch.Generator().manual_seed(self.seed))
+        params = {k: v.to(self.device) for k, v in params.items()}
+        replicas = tu.tree_broadcast_replicas(params, R)
+        momentum = init_momentum(replicas, self.sgd)
+        extras = self.algo.init_state_extras(self.cfg, params)
+        b = np.asarray(extras.b, np.float64)
+        lr = self.base_lr * b / self.cfg.b_max  # linear-scaling rule
+        return ElasticState(
+            replicas=replicas,
+            global_model=extras.global_model,
+            prev_global=extras.prev_global,
+            momentum=momentum,
+            b=b,
+            lr=lr,
+        )
+
+    # ------------------------------------------------------------------
+    # rounds
+    # ------------------------------------------------------------------
+    def _round(self, replicas, momentum, batch, lr_vec, update_mask):
+        """One lockstep round over all R replicas: batched loss and
+        gradients, then the in-place SGD update."""
+        (loss, aux), grads = self.model.sparse_grad_fn(replicas, batch)
+        transforms = self._transforms
+        if transforms.grad_transform is not None:
+            grads = transforms.grad_transform(grads, update_mask)
+        replicas, momentum = sgd_update(
+            replicas, grads, lr_vec, self.sgd,
+            momentum_state=momentum, update_mask=update_mask,
+        )
+        if transforms.post_round is not None:
+            # every round of an unpadded plan has a live replica
+            replicas = transforms.post_round(replicas)
+        return replicas, momentum, loss, aux
+
+    def _run_rounds(self, state: ElasticState, plan, b_slots: int):
+        """Upload the stacked plan once, run its rounds on the device, and
+        read the mega-batch's (loss, accuracy) back in one host sync."""
+        grid = plan.payload_grid(self.cfg.n_replicas)
+        batches_np, mask_np = self.provider.stack_plan(grid, b_slots)
+        batches = _to_device(batches_np, self.device)
+        mask = torch.from_numpy(mask_np).to(self.device)
+        lr = torch.from_numpy(np.asarray(state.lr, np.float32)).to(self.device)
+        replicas, momentum = state.replicas, state.momentum
+        stats = []
+        for r in range(plan.n_rounds):
+            m = mask[r]
+            replicas, momentum, loss, aux = self._round(
+                replicas, momentum, {k: v[r] for k, v in batches.items()}, lr, m
+            )
+            sums = torch.stack([
+                (loss * m).sum(),
+                (aux["accuracy"] * m).sum(),
+                (aux["n_valid"] * m).sum(),
+                m.sum(),
+            ])
+            denom = sums[3].clamp_min(1.0)
+            stats.append(torch.stack(
+                [sums[0] / denom, sums[1] / denom, sums[2], (sums[3] > 0).float()]
+            ))
+        stats = torch.stack(stats)
+        n_live = stats[:, 3].sum().clamp_min(1.0)
+        loss, acc = (torch.stack([stats[:, 0].sum(), stats[:, 1].sum()]) / n_live).tolist()
+        return replicas, momentum, loss, acc
+
+    # ------------------------------------------------------------------
+    # non-finite guard
+    # ------------------------------------------------------------------
+    def _finite_rows(self, replicas) -> np.ndarray:
+        """(R,) bool on the host: replica i's leaves are all finite."""
+        parts = [torch.isfinite(l.float()).flatten(1).all(dim=1) for l in replicas.values()]
+        return torch.stack(parts).all(dim=0).cpu().numpy()
+
+    def _repair_nonfinite(self, state, replicas, momentum, finite):
+        """Re-clone non-finite replicas from a finite donor.
+
+        The poisoned rows are zeroed first (``0 * NaN`` is still NaN), then
+        overwritten with the donor: the Algorithm-2 normalized merge of the
+        finite rows, weights ``b_i`` restricted to them. A fully diverged
+        population restarts from the last barrier global; without one the
+        guard raises. Healed replicas continue with zeroed momentum.
+        """
+        keep = torch.from_numpy(finite).to(self.device)
+
+        def keep_rows(l, fill):
+            return torch.where(keep.view((-1,) + (1,) * (l.ndim - 1)), l, fill)
+
+        replicas = tu.tree_map(lambda l: keep_rows(l, torch.zeros_like(l)), replicas)
+        if finite.any():
+            alphas = np.where(finite, np.asarray(state.b, np.float64), 0.0)
+            donor, _ = self.merge_models(replicas, alphas / alphas.sum(), None, None, 0.0)
+        elif state.global_model is not None:
+            donor = state.global_model
+        else:
+            raise FloatingPointError(
+                "all replicas diverged to non-finite values and algorithm "
+                f"{self.algo.name!r} keeps no global model to restart from"
+            )
+        replicas = tu.tree_map(
+            lambda l, g: keep_rows(l, g.to(l.dtype).expand_as(l)), replicas, donor
+        )
+        if momentum is not None:
+            momentum = tu.tree_map(lambda l: keep_rows(l, torch.zeros_like(l)), momentum)
+        return replicas, momentum
+
+    # ------------------------------------------------------------------
+    # one mega-batch
+    # ------------------------------------------------------------------
+    def run_megabatch(self, state: ElasticState) -> tuple[ElasticState, dict]:
+        """Plan, execute, and merge one mega-batch; returns (new_state, info).
+
+        ``algo.plan`` → rounds (with ``algo.round_transforms``) →
+        non-finite guard → ``algo.merge`` → ``algo.adapt`` → merge-cost
+        accounting. The rounds update ``state.replicas``/``state.momentum``
+        in place: continue from the returned state only.
+        """
+        cfg = self.cfg
+        R = cfg.n_replicas
+        mega_samples = cfg.mega_batch * cfg.b_max
+        b_slots = cfg.b_max
+
+        def fetch(i, take):
+            payload = self.provider.fetch(take, b_slots)
+            return payload, self.provider.work_units(payload)
+
+        plan = self.algo.plan(self.scheduler, state, mega_samples, fetch)
+        replicas, momentum, train_loss, train_acc = self._run_rounds(state, plan, b_slots)
+
+        # ---- non-finite guard: heal poisoned replicas before the barrier;
+        # inert while every replica is finite ----
+        guard_repaired: list[int] = []
+        finite = self._finite_rows(replicas)
+        if not finite.all():
+            replicas, momentum = self._repair_nonfinite(state, replicas, momentum, finite)
+            guard_repaired = np.flatnonzero(~finite).tolist()
+
+        # ---- merge (the barrier) + between-mega-batch adaptation ----
+        outcome = self.algo.merge(self, state, plan, replicas)
+        new_b, new_lr = self.algo.adapt(state, plan, cfg)
+        alphas = outcome.alphas if outcome.alphas is not None else np.full(R, 1.0 / R)
+
+        n_merges = self.algo.merges_per_megabatch(plan)
+        self.scheduler.clock.t[:] += MERGE_COST * n_merges
+        virtual_time = float(self.scheduler.clock.t.max())
+
+        new_state = ElasticState(
+            replicas=outcome.replicas,
+            global_model=outcome.global_model,
+            prev_global=outcome.prev_global,
+            momentum=momentum,
+            b=np.asarray(new_b, np.float64),
+            lr=np.asarray(new_lr, np.float64),
+            megabatch_idx=state.megabatch_idx + 1,
+        )
+        info = {
+            "n_replicas": R,
+            "u": plan.u.tolist(),
+            "b": np.round(np.asarray(new_b), 2).tolist(),
+            "lr": np.round(np.asarray(new_lr), 6).tolist(),
+            "alphas": np.round(np.asarray(alphas, np.float64), 4).tolist(),
+            "pert_active": bool(outcome.pert_active),
+            "train_loss": train_loss,
+            "train_accuracy": train_acc,
+            "virtual_time": virtual_time,
+            "n_rounds": plan.n_rounds,
+        }
+        if guard_repaired:
+            info["guard_repaired"] = guard_repaired
+        return new_state, info
+
+    # ------------------------------------------------------------------
+    # evaluation + full run
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self, params: dict, test_batches: list) -> dict:
+        """Sample-weighted test loss and top-1 accuracy of ``params`` (no
+        replica dim) over ``test_batches``, read back in one host sync."""
+        per_batch = []
+        for payload in test_batches:
+            stacked = self.provider.stack([payload])
+            batch = _to_device({k: v[0] for k, v in stacked.items()}, self.device)
+            loss, aux = self.model.loss_fn(params, batch)
+            per_batch.append(torch.stack([loss, aux["accuracy"], aux["n_valid"]]))
+        rows = torch.stack(per_batch).tolist() if per_batch else []
+        tot_acc, tot_loss, tot_n = 0.0, 0.0, 0.0
+        for loss, acc, n in rows:
+            tot_acc += acc * n
+            tot_loss += loss * n
+            tot_n += n
+        return {
+            "accuracy": tot_acc / max(tot_n, 1.0),
+            "loss": tot_loss / max(tot_n, 1.0),
+        }
+
+    def run(
+        self,
+        n_megabatches: int,
+        test_batches: Optional[list] = None,
+        verbose: bool = False,
+    ) -> tuple[ElasticState, MetricsLog]:
+        """Train ``n_megabatches`` mega-batches, evaluating the global model
+        on ``test_batches`` (when given) after each of them."""
+        state = self.init_state()
+        mlog = MetricsLog()
+        t0 = time.perf_counter()
+        for mb in range(n_megabatches):
+            state, info = self.run_megabatch(state)
+            if test_batches is not None:
+                ev = self.evaluate(state.global_model, test_batches)
+                info.update(accuracy=ev["accuracy"], test_loss=ev["loss"])
+            info["megabatch"] = mb + 1
+            info["wall_clock"] = time.perf_counter() - t0
+            mlog.append(**info)
+            if verbose:
+                record = mlog.records[-1]
+                log(
+                    f"[{self.cfg.algorithm}] mb={record['megabatch']}",
+                    loss=round(record["train_loss"], 4),
+                    acc=round(record.get("accuracy", float("nan")), 4),
+                    u=record["u"],
+                    b=record["b"],
+                    vt=round(record["virtual_time"], 3),
+                )
+        return state, mlog

@@ -1,0 +1,47 @@
+// Helpers shared by the port's kernels: vector packs and f32 conversions.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace repro_torch {
+
+// Storage dtype codes passed from the Python wrappers.
+enum DType : int64_t { kFloat32 = 0, kBFloat16 = 1 };
+
+// N consecutive elements loaded or stored with one vector access
+// (16 bytes for 4 x f32, 8 bytes for 4 x bf16).
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T v[N];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> load_pack(const T* p) {
+  return *reinterpret_cast<const Pack<T, N>*>(p);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, N>& x) {
+  *reinterpret_cast<Pack<T, N>*>(p) = x;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+inline bool aligned_to(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+}  // namespace repro_torch

@@ -1,0 +1,51 @@
+"""The port stands alone: importing every module of ``repro_torch`` loads
+neither JAX nor any module of the reference package, builds no kernel, and
+the trainer refuses to fall back to the CPU when no card is present."""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+from repro_torch.kernels import _build
+print(len(names))
+print(",".join(bad))
+print(_build.library.cache_info().currsize)
+"""
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], env=env, capture_output=True, text=True,
+        timeout=120, check=True,
+    ).stdout.splitlines()
+    n_modules, bad, n_loaded = int(out[0]), out[1], int(out[2])
+    assert n_modules >= 25, n_modules   # the walk really saw the package
+    assert bad == "", f"the port imported {bad}"
+    assert n_loaded == 0                # nothing was built or loaded
+
+
+def test_trainer_without_device_needs_cuda(monkeypatch):
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.core.trainer import ElasticTrainer
+    from repro_torch.models.xml_mlp import XMLMLPConfig, make_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = make_model(XMLMLPConfig(n_features=16, n_classes=4, hidden=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticTrainer(model, provider=None, cfg=ElasticConfig())
