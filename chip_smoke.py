@@ -9,16 +9,23 @@ Phases (each prints its lines; any failure raises and exits nonzero):
 
 1. device  — needs ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` gives them.
-2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc (one process
-   per source, in parallel) and loads the library.
+2. build   — compiles the three ``src/repro_torch/csrc/*.cu`` sources
+   (spmm, spmm_grad_w, weighted_merge) with nvcc, one process per source,
+   in parallel, and loads the library.
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    at the shapes the main path gives it (plus ragged shapes and bf16), with
    the reference's kernel tolerances; times kernel, plain version and one
    PyTorch library call: device time from the profiler's trace, and
    CUDA events around each call (median of 20 after warm-up), which also
-   count the host's cost of issuing it.
+   count the host's cost of issuing it. spmm_grad_w must also be
+   deterministic (two launches bitwise equal), also on 48 small edge cases
+   of its chunking held against an f64 scatter, and spmm's autograd
+   Function (dW and d feat_val) must agree with autograd through the plain
+   forward.
 4. slice   — the port's trainer on the card against the same trainer on the
-   CPU (plain versions), same weights and data, small width: the host
+   CPU (plain versions), same weights and data, small width: every
+   registered algorithm, plus adaptive and sync with dense gradients and
+   adaptive under the legacy_loop engine, 2 mega-batches each; the host
    decisions must be identical and the losses agree within tolerance.
 5. main    — the paper's experiment at Amazon-670K width (135,909 features,
    670,091 classes, hidden 128): Adaptive SGD, R = 4, b_max 256, 3
@@ -26,6 +33,12 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    ``ElasticTrainer.run``. Checks finite losses and model, and that every
    kernel launch count is what the run needed. One more mega-batch runs
    under the profiler: the device busy share and the top kernels.
+6. paths   — the same width and data: Adaptive SGD with dense gradients
+   (``spmm_grad_w`` every round) for 2 mega-batches against a sparse run
+   from the same weights (host decisions identical, losses within a
+   relative 1e-4, one spmm_grad_w launch per round), one more dense
+   mega-batch under the profiler; then elastic, sync, crossbow,
+   delayed_sync and single for one mega-batch each.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. The data are synthetic, drawn from
@@ -34,6 +47,7 @@ Then one JSON line with every kernel's numbers, and as the last line
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -91,6 +105,19 @@ def device_ms(fn, reps: int = 20):
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
+def device_breakdown(label: str, fn, reps: int = 20) -> None:
+    """Print the device time per call of each kernel ``fn`` launches."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for e in sorted(prof.key_averages(), key=lambda e: -device_us(e)):
+        print(f"{label}: {device_us(e) / reps / 1e3:.4f} ms/call x{e.count // reps} "
+              f"{e.key[:90]}")
+
+
 def check_close(what: str, got, want, tol: dict) -> float:
     """Max |got - want| in f32; raises if outside ``tol``."""
     got, want = got.float(), want.float()
@@ -141,13 +168,14 @@ def main() -> int:
     )
 
     from repro_torch.configs.base import ElasticConfig
+    from repro_torch.core import algorithms
     from repro_torch.core.trainer import ElasticTrainer
     from repro_torch.data.providers import SparseProvider
     from repro_torch.data.sparse import SparseDataset, train_test_split
     from repro_torch.data.xml_synth import AMAZON_670K, make_xml_dataset
     from repro_torch.kernels import _build
-    from repro_torch.kernels.spmm.ops import spmm_cuda
-    from repro_torch.kernels.spmm.ref import spmm_ref
+    from repro_torch.kernels.spmm.ops import spmm, spmm_cuda, spmm_grad_w_cuda
+    from repro_torch.kernels.spmm.ref import spmm_grad_w_ref, spmm_ref
     from repro_torch.kernels.weighted_merge.ops import merge_cuda
     from repro_torch.kernels.weighted_merge.ref import weighted_merge_ref
     from repro_torch.models.protocol import TrainableModel
@@ -246,7 +274,95 @@ def main() -> int:
     w_odd = w32[:, :5000, :100].contiguous()
     spmm_case("f32 H=100 K=37", *odd, w_odd, F32_TOL)
     spmm_case("bf16 H=100 K=37", *odd, w_odd.to(torch.bfloat16), BF16_TOL)
-    del w32, w_odd
+
+    def grad_w_case(name, idx, val, mask, dh, n_rows):
+        """spmm_grad_w: kernel against plain, bitwise-repeatable, timed."""
+        a = spmm_grad_w_cuda(idx, val, mask, dh, n_rows)
+        b = spmm_grad_w_cuda(idx, val, mask, dh, n_rows)
+        if not torch.equal(a, b):
+            raise RuntimeError(f"spmm_grad_w[{name}]: two launches differ")
+        del a, b
+        h, lead = dh.shape[-1], idx.shape[:-2]
+        n_rep = idx.numel() // (idx.shape[-1] * idx.shape[-2])
+        # yardstick: one index_add_ of the per-slot products into a zeroed
+        # output; its flat rows and products are made outside the timing
+        flat, prods = scatter_operands(idx, val, mask, dh, n_rows, torch.float32)
+        # the bound counts what this data needs: the dense f32 output written
+        # once, idx/val/mask read once, one dh row per (replica, sample), and
+        # a multiply-add per unmasked slot and column
+        n_live = int(mask.sum())
+        print(f"spmm_grad_w[{name}] needs: {n_live} of {idx.numel()} slots unmasked, "
+              f"largest run {int(torch.bincount(flat).max())} slots")
+        device_breakdown(f"spmm_grad_w[{name}] by kernel",
+                         lambda: spmm_grad_w_cuda(idx, val, mask, dh, n_rows))
+        return measure(
+            f"spmm_grad_w[{name}]",
+            lambda: spmm_grad_w_cuda(idx, val, mask, dh, n_rows),
+            lambda: spmm_grad_w_ref(idx, val, mask, dh, n_rows),
+            lambda: torch.zeros((n_rep * n_rows, h), device=dev).index_add_(0, flat, prods),
+            nbytes=n_rep * n_rows * h * 4 + idx.numel() * (4 + 4 + 1)
+            + math.prod(lead) * idx.shape[-2] * h * 4,
+            flops=2 * n_live * h, tol=F32_TOL,
+        )
+
+    def scatter_operands(idx, val, mask, dh, n_rows, dtype):
+        """spmm_grad_w as one scatter: (…*B*K,) flat output rows and the
+        (…*B*K, H) per-slot products scale·dh in ``dtype``."""
+        n_rep = idx.numel() // (idx.shape[-1] * idx.shape[-2])
+        offs = (torch.arange(n_rep, device=dev) * n_rows).view(-1, 1)
+        flat = (idx.reshape(n_rep, -1).long() + offs).reshape(-1)
+        prods = (val * mask).to(dtype)[..., None] * dh.to(dtype)[..., None, :]
+        return flat, prods.reshape(-1, dh.shape[-1])
+
+    # spmm_grad_w's chunk boundaries at small sizes: fewer slots than a
+    # chunk, runs crossing many chunks, one row for every slot, ragged H.
+    # Long f32 sums differ by reassociation, so each result is held against
+    # an f64 scatter: within 2e-5, or within twice the plain version's error.
+    n_edge = 0
+    for lead in ((), (3,)):
+        for b, k in ((1, 1), (1, 128), (3, 257), (64, 100)):
+            for h in (3, 128, 132):
+                for one_row in (False, True):
+                    e_mask = torch.rand(lead + (b, k), generator=gen, device=dev) > 0.67
+                    e_idx = torch.randint(0, 300, lead + (b, k), generator=gen, device=dev,
+                                          dtype=torch.int32)
+                    e_idx = torch.full_like(e_idx, 7) if one_row else torch.where(e_mask, e_idx, 0)
+                    e_val = torch.randn(lead + (b, k), generator=gen, device=dev)
+                    e_dh = torch.randn(lead + (b, h), generator=gen, device=dev)
+                    got = spmm_grad_w_cuda(e_idx, e_val, e_mask, e_dh, 300)
+                    again = spmm_grad_w_cuda(e_idx, e_val, e_mask, e_dh, 300)
+                    plain = spmm_grad_w_ref(e_idx, e_val, e_mask, e_dh, 300)
+                    flat, prods = scatter_operands(e_idx, e_val, e_mask, e_dh, 300,
+                                                   torch.float64)
+                    exact = torch.zeros((flat.numel() // (b * k) * 300, h), dtype=torch.float64,
+                                        device=dev).index_add_(0, flat, prods).view(got.shape)
+                    err_k = (got.double() - exact).abs().max().item()
+                    err_p = (plain.double() - exact).abs().max().item()
+                    if not torch.equal(got, again) or err_k > max(2 * err_p, 2e-5):
+                        raise RuntimeError(f"spmm_grad_w edge case {lead + (b, k, h)} one_row="
+                                           f"{one_row}: error {err_k:.3g} against f64 (plain "
+                                           f"{err_p:.3g}), repeatable {torch.equal(got, again)}")
+                    n_edge += 1
+    print(f"spmm_grad_w: {n_edge} edge cases repeatable and as close to f64 as the plain version")
+
+    dh = torch.randn((R, B_MAX, H), generator=gen, device=dev)
+    results["spmm_grad_w"] = grad_w_case("f32 R=4", idx, val, mask, dh, NF)
+    grad_w_case("f32 2-D", idx[0], val[0], mask[0], dh[0].contiguous(), NF)
+    grad_w_case("f32 H=100 K=37", *odd, dh[:, :8, :100].contiguous(), 5000)
+
+    # spmm's autograd Function: dW (the kernel) and d feat_val against
+    # autograd through the plain forward, at the main path's shapes
+    def grads(fn):
+        v = val.clone().requires_grad_(True)
+        w = w32.clone().requires_grad_(True)
+        (fn(idx, v, mask, w) * dh).sum().backward()
+        return w.grad, v.grad
+
+    (dw, dv), (dw_ref, dv_ref) = grads(spmm), grads(spmm_ref)
+    err_w = check_close("spmm backward dW", dw, dw_ref, F32_TOL)
+    err_v = check_close("spmm backward dval", dv, dv_ref, F32_TOL)
+    print(f"spmm autograd backward: dW max abs err {err_w:.3g}, dval {err_v:.3g}")
+    del w32, w_odd, dw, dv, dw_ref, dv_ref
 
     def merge_case(name, n, dtype, momentum, tol):
         reps = torch.randn((R, n), generator=gen, device=dev).to(dtype)
@@ -280,36 +396,44 @@ def main() -> int:
     # ---- 4. the slice on the card against the CPU, small width -------------
     small = dict(n_features=512, n_classes=128, hidden=32)
     p0 = init_params(XMLMLPConfig(**small), torch.Generator().manual_seed(SEED))
-    records = {}
-    for where in ("cuda", "cpu"):
-        sds = make_xml_dataset(n_samples=1024, n_features=512, n_classes=128, avg_nnz=16,
-                               seed=SEED)
-        strain, stest = train_test_split(sds, 0.2, seed=SEED)
+    sds = make_xml_dataset(n_samples=1024, n_features=512, n_classes=128, avg_nnz=16,
+                           seed=SEED)
+    strain, stest = train_test_split(sds, 0.2, seed=SEED)
+
+    def small_run(where, algo, engine, sparse):
         sprov = SparseProvider.make(strain, seed=SEED)
         base = make_model(XMLMLPConfig(**small))
         model = TrainableModel(init=lambda generator: {k: v.clone() for k, v in p0.items()},
                                loss_fn=base.loss_fn, sparse_grad_fn=base.sparse_grad_fn,
                                config=base.config)
-        tr = ElasticTrainer(model, sprov, ElasticConfig.from_bmax(32, n_replicas=4,
-                                                                  mega_batch=10),
-                            base_lr=0.5, seed=SEED, device=where)
+        n_rep = algorithms.get(algo).resolve_n_replicas(4)
+        cfg = ElasticConfig.from_bmax(32, algorithm=algo, n_replicas=n_rep, mega_batch=10)
+        tr = ElasticTrainer(model, sprov, cfg, base_lr=0.5, seed=SEED, device=where,
+                            engine=engine, sparse_grads=sparse)
         state, mlog = tr.run(2, test_batches=sprov.test_batches(stest, 32))
-        records[where] = (mlog.records, {k: v.cpu() for k, v in state.global_model.items()})
-    (gpu_recs, gpu_model), (cpu_recs, cpu_model) = records["cuda"], records["cpu"]
-    for a, b in zip(gpu_recs, cpu_recs):
-        for k in ("u", "b", "lr", "alphas", "n_rounds", "virtual_time"):
-            if a[k] != b[k]:
-                raise RuntimeError(f"slice: {k} differs card vs CPU: {a[k]} vs {b[k]}")
-    # tolerance: f32 sums in other orders (kernel, cuBLAS, and index_add_,
-    # whose CUDA atomics add in a nondeterministic order)
-    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for a, b in zip(gpu_recs, cpu_recs)
-                   for k in ("train_loss", "test_loss"))
-    model_err = max((gpu_model[k] - cpu_model[k]).abs().max().item() for k in gpu_model)
-    print(f"slice card vs cpu: u/b/lr/alphas identical over {len(gpu_recs)} mega-batches; "
-          f"loss rel err {loss_err:.3g} (tol 1e-4), global model max abs err "
-          f"{model_err:.3g} (tol 1e-4)")
-    if loss_err > 1e-4 or model_err > 1e-4:
-        raise RuntimeError("slice: card and CPU runs disagree beyond tolerance")
+        return mlog.records, {k: v.cpu() for k, v in state.global_model.items()}
+
+    slice_cases = [(a, "scan", True) for a in algorithms.available()] + [
+        ("adaptive", "scan", False), ("sync", "scan", False), ("adaptive", "legacy_loop", True)]
+    for algo, engine, sparse in slice_cases:
+        label = f"{algo}/{engine}/{'sparse' if sparse else 'dense'}"
+        (gpu_recs, gpu_model), (cpu_recs, cpu_model) = (
+            small_run(where, algo, engine, sparse) for where in ("cuda", "cpu"))
+        for a, b in zip(gpu_recs, cpu_recs):
+            for k in ("u", "b", "lr", "alphas", "n_rounds", "virtual_time", "pert_active"):
+                if a[k] != b[k]:
+                    raise RuntimeError(f"slice {label}: {k} differs card vs CPU: "
+                                       f"{a[k]} vs {b[k]}")
+        # tolerance: f32 sums in other orders (kernels, cuBLAS, and
+        # index_add_, whose CUDA atomics add in a nondeterministic order)
+        loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                       for a, b in zip(gpu_recs, cpu_recs) for k in ("train_loss", "test_loss"))
+        model_err = max((gpu_model[k] - cpu_model[k]).abs().max().item() for k in gpu_model)
+        print(f"slice {label} card vs cpu: host decisions identical over {len(gpu_recs)} "
+              f"mega-batches; loss rel err {loss_err:.3g} (tol 1e-4), global model max abs "
+              f"err {model_err:.3g} (tol 1e-4)")
+        if len(gpu_recs) != 2 or loss_err > 1e-4 or model_err > 1e-4:
+            raise RuntimeError(f"slice {label}: card and CPU runs disagree beyond tolerance")
 
     # ---- 5. the main path at full width ---------------------------------
     test_batches = provider.test_batches(test, B_MAX, max_samples=2048)
@@ -320,11 +444,20 @@ def main() -> int:
     )
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    spmm_cuda.launches = 0
-    merge_cuda.launches = 0
+    counters = {"spmm": spmm_cuda, "weighted_merge": merge_cuda,
+                "spmm_grad_w": spmm_grad_w_cuda}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    reset_counts()
     state, mlog = trainer.run(3, test_batches=test_batches, verbose=True)
     torch.cuda.synchronize()
-    launches = {"spmm": spmm_cuda.launches, "weighted_merge": merge_cuda.launches}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prev = 0.0
     for rec in mlog.records:
@@ -335,7 +468,7 @@ def main() -> int:
     print(f"main peak device memory: {peak_gb:.2f} GB")
     n_rounds = sum(r["n_rounds"] for r in mlog.records)
     want = {"spmm": n_rounds + len(mlog.records) * len(test_batches),
-            "weighted_merge": 4 * len(mlog.records)}
+            "weighted_merge": 4 * len(mlog.records), "spmm_grad_w": 0}
     print(f"main launches: {launches} (expected {want})")
     if launches != want:
         raise RuntimeError(f"main: launch counts {launches} != expected {want}")
@@ -346,23 +479,105 @@ def main() -> int:
         raise RuntimeError("main: the global model is not finite")
 
     # ---- where a warm mega-batch's device time goes ----------------------
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, info = trainer.run_megabatch(state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    per_kernel = sorted(prof.key_averages(), key=lambda e: -device_us(e))
-    busy = sum(device_us(e) for e in per_kernel) / 1e6
-    print(f"profile: warm mega-batch ({info['n_rounds']} rounds) {wall:.3f} s wall, "
-          f"device busy {busy:.3f} s ({busy / wall:.1%})")
-    for e in per_kernel[:12]:
-        print(f"profile: {device_us(e) / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
+    def profile_megabatch(label, trainer, state):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, info = trainer.run_megabatch(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        per_kernel = sorted(prof.key_averages(), key=lambda e: -device_us(e))
+        busy = sum(device_us(e) for e in per_kernel) / 1e6
+        print(f"profile{label}: warm mega-batch ({info['n_rounds']} rounds) {wall:.3f} s "
+              f"wall, device busy {busy:.3f} s ({busy / wall:.1%})")
+        for e in per_kernel[:12]:
+            print(f"profile{label}: {device_us(e) / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
+        return state
+
+    profile_megabatch("", trainer, state)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # ---- 6. the dense-gradient path and the other algorithms, full width ----
+    cfg_full = XMLMLPConfig(n_features=NF, n_classes=NC, hidden=H)
+    p_full = init_params(cfg_full, torch.Generator(device=dev).manual_seed(SEED))
+
+    def full_trainer(algo="adaptive", sparse=True):
+        base = make_model(cfg_full)
+        model = TrainableModel(init=lambda generator: {k: v.clone() for k, v in p_full.items()},
+                               loss_fn=base.loss_fn, sparse_grad_fn=base.sparse_grad_fn,
+                               config=cfg_full)
+        n_rep = algorithms.get(algo).resolve_n_replicas(R)
+        return ElasticTrainer(
+            model, SparseProvider.make(train, seed=SEED),
+            ElasticConfig.from_bmax(B_MAX, algorithm=algo, n_replicas=n_rep, mega_batch=20),
+            base_lr=0.05, seed=SEED, device="cuda", sparse_grads=sparse,
+        )
+
+    def megabatches(trainer, n):
+        """n mega-batches from the trainer's initial state, each timed."""
+        state, infos = trainer.init_state(), []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state, info = trainer.run_megabatch(state)
+            torch.cuda.synchronize()
+            infos.append(dict(info, seconds=time.perf_counter() - t0))
+        return state, infos
+
+    sparse_state, sparse_infos = megabatches(full_trainer(), 2)
+    del sparse_state
+    torch.cuda.empty_cache()
+    dense_trainer = full_trainer(sparse=False)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    dense_state, dense_infos = megabatches(dense_trainer, 2)
+    dense_launches = read_counts()
+    dense_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for label, infos in (("sparse", sparse_infos), ("dense", dense_infos)):
+        for i, info in enumerate(infos):
+            print(f"paths adaptive/{label} mb={i + 1} u={info['u']} n_rounds={info['n_rounds']} "
+                  f"loss={info['train_loss']:.6f} seconds={info['seconds']:.3f}")
+    for a, b in zip(dense_infos, sparse_infos):
+        for k in ("u", "b", "lr", "alphas", "n_rounds", "virtual_time", "pert_active"):
+            if a[k] != b[k]:
+                raise RuntimeError(f"paths: {k} differs dense vs sparse: {a[k]} vs {b[k]}")
+    dense_err = max(abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
+                    for a, b in zip(dense_infos, sparse_infos))
+    dense_rounds = sum(info["n_rounds"] for info in dense_infos)
+    print(f"paths dense vs sparse: host decisions identical, train loss rel err "
+          f"{dense_err:.3g} (tol 1e-4); launches {dense_launches} over {dense_rounds} "
+          f"rounds; peak device memory {dense_peak_gb:.2f} GB")
+    if dense_err > 1e-4:
+        raise RuntimeError("paths: dense and sparse losses disagree beyond tolerance")
+    if dense_launches["spmm_grad_w"] != dense_rounds:
+        raise RuntimeError(f"paths: {dense_launches['spmm_grad_w']} spmm_grad_w launches "
+                           f"for {dense_rounds} dense rounds")
+    if not all(torch.isfinite(v).all().item() for v in dense_state.global_model.values()):
+        raise RuntimeError("paths: the dense run's global model is not finite")
+    profile_megabatch(" dense", dense_trainer, dense_state)
+    del dense_trainer, dense_state
+    torch.cuda.empty_cache()
+
+    for algo in ("elastic", "sync", "crossbow", "delayed_sync", "single"):
+        algo_state, (info,) = megabatches(full_trainer(algo), 1)
+        finite = all(torch.isfinite(v).all().item() for v in algo_state.global_model.values())
+        print(f"paths {algo}: R={info['n_replicas']} n_rounds={info['n_rounds']} "
+              f"loss={info['train_loss']:.6f} seconds={info['seconds']:.3f} "
+              f"finite model {finite}")
+        if not (np.isfinite(info["train_loss"]) and finite):
+            raise RuntimeError(f"paths {algo}: non-finite loss or global model")
+        del algo_state
+        torch.cuda.empty_cache()
 
     sources = {
         "spmm": ("src/repro_torch/csrc/spmm.cu", "src/repro/kernels/spmm/spmm.py:74"),
         "weighted_merge": ("src/repro_torch/csrc/weighted_merge.cu",
                            "src/repro/kernels/weighted_merge/weighted_merge.py:60"),
+        "spmm_grad_w": ("src/repro_torch/csrc/spmm_grad_w.cu",
+                        "src/repro/kernels/spmm/spmm.py:147"),
     }
+    # launches: spmm and weighted_merge on the main path (phase 5),
+    # spmm_grad_w on the dense-gradient path (phase 6)
+    launches["spmm_grad_w"] = dense_launches["spmm_grad_w"]
     kernels = []
     for name, r in results.items():
         kernels.append(dict(

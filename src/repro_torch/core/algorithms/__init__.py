@@ -2,8 +2,9 @@
 
 Port of ``repro/core/algorithms``: the ``Algorithm`` base class, the
 registry (``register``/``get``/``available``) and the hook result types.
-Importing this package registers the ported algorithms — so far the
-paper's ``adaptive``.
+Importing this package registers the reference's six algorithms: the
+paper's ``adaptive``, its baselines ``elastic``, ``sync``, ``crossbow``
+and ``single``, and ``delayed_sync``.
 """
 from .base import (  # noqa: F401
     Algorithm,
@@ -17,4 +18,4 @@ from .base import (  # noqa: F401
 )
 
 # built-ins self-register on import
-from . import adaptive  # noqa: F401, E402
+from . import adaptive, crossbow, delayed_sync, elastic, single, sync  # noqa: F401, E402

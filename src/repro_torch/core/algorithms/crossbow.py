@@ -1,0 +1,44 @@
+"""CROSSBOW synchronous model averaging (paper §5.1 baseline).
+
+Port of ``repro/core/algorithms/crossbow.py``. Independent learners
+corrected toward the replica average after every round. The correction is
+one function — ``crossbow_correct`` — run as the post-round hook and again,
+as a plain call, at the mega-batch barrier to read the center as the
+global model.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.utils import tree as tu
+
+from .base import Algorithm, MergeOutcome, RoundTransforms, register
+
+
+def crossbow_correct(replicas, c: float):
+    """w_i ← w_i − c (w_i − w̄). Returns (corrected replicas, f32 center w̄)."""
+    center = tu.tree_replica_mean_keepdims(replicas)
+    corrected = tu.tree_map(
+        lambda l, m: (l.float() - c * (l.float() - m)).to(l.dtype), replicas, center
+    )
+    return corrected, tu.tree_map(lambda m: m[0], center)
+
+
+@register("crossbow")
+class Crossbow(Algorithm):
+    def round_transforms(self, cfg):
+        c = cfg.crossbow_correction
+        return RoundTransforms(post_round=lambda reps: crossbow_correct(reps, c)[0])
+
+    def merge(self, trainer, state, plan, replicas):
+        cfg = trainer.cfg
+        replicas, center = crossbow_correct(replicas, cfg.crossbow_correction)
+        return MergeOutcome(
+            replicas=replicas,
+            global_model=center,
+            alphas=np.full(cfg.n_replicas, 1.0 / cfg.n_replicas),
+        )
+
+    def merges_per_megabatch(self, plan):
+        # synchronous averaging after every batch, like `sync`
+        return plan.n_rounds

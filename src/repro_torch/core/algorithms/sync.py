@@ -1,0 +1,49 @@
+"""Gradient aggregation (TensorFlow-mirrored synchronous SGD baseline).
+
+Port of ``repro/core/algorithms/sync.py``. Per-round cross-replica
+gradient averaging over a static equal plan with per-GPU batch b_max / R;
+replicas stay identical, so the "merge" is just a replica copy. The paper
+models its per-batch all-reduce as one merge cost per round.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.optim.row_sparse import densify_tree
+from repro_torch.utils import tree as tu
+
+from .base import Algorithm, MergeOutcome, RoundTransforms, StateExtras, register
+
+
+def mean_grads(grads, update_mask):
+    """All replicas share the plain cross-replica mean gradient.
+
+    Replicas see different batches, so row-sparse grads have no common row
+    set to average over — densify before the mean. (Static plans: every
+    replica is live each round, so the mask does not enter.)
+    """
+    grads = densify_tree(grads)
+    means = tu.tree_replica_mean_keepdims(grads)
+    return tu.tree_map(lambda g, m: m.expand_as(g).to(g.dtype), grads, means)
+
+
+@register("sync")
+class GradientAggregation(Algorithm):
+    def init_state_extras(self, cfg, params):
+        b0 = max(cfg.b_min, cfg.b_max // cfg.n_replicas)
+        return StateExtras(b=np.full(cfg.n_replicas, float(b0)))
+
+    def round_transforms(self, cfg):
+        return RoundTransforms(grad_transform=mean_grads)
+
+    def merge(self, trainer, state, plan, replicas):
+        R = trainer.cfg.n_replicas
+        return MergeOutcome(
+            replicas=replicas,  # identical already
+            global_model=tu.tree_replica_slice(replicas, 0),
+            alphas=np.full(R, 1.0 / R),
+        )
+
+    def merges_per_megabatch(self, plan):
+        # "updates the global model after every batch"
+        return plan.n_rounds

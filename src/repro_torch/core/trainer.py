@@ -7,14 +7,24 @@ resolves from ``cfg.algorithm``; the engine drives it through its hooks:
 
   init_state_extras → plan → round_transforms → merge → adapt
 
-Engine (the reference's scan engine): the plan's payloads are stacked
-into (n_rounds, R, ...) arrays and uploaded once per mega-batch; a Python
-loop runs the rounds on the device, each one a batched forward/backward
-over all R replicas and an in-place SGD update; the per-round loss /
-accuracy / sample counts reduce on the device with the reference's
-normalization, and the host reads them once per mega-batch. Rounds are not
-padded to a power of two: the reference's padding rounds are masked no-ops
-that only bound XLA recompiles.
+Engines, as in the reference (``ENGINES``):
+
+  * ``scan`` (default) — the plan's payloads are stacked into
+    (n_rounds, R, ...) arrays and uploaded once per mega-batch; a Python
+    loop runs the rounds on the device, each one a batched forward/backward
+    over all R replicas and an in-place SGD update; the per-round loss /
+    accuracy / sample counts reduce on the device with the reference's
+    normalization, and the host reads them once per mega-batch. Rounds are
+    not padded to a power of two: the reference's padding rounds are masked
+    no-ops that only bound XLA recompiles.
+  * ``legacy_loop`` — the reference's per-round host loop, kept as the
+    oracle of the scan engine: one upload per round, and each round's loss
+    and accuracy read on the host and averaged there.
+
+Gradients: the model's row-sparse ``sparse_grad_fn`` when it has one and
+``sparse_grads`` is True; otherwise dense autograd through ``loss_fn``
+(the reference's ``jax.vmap(jax.value_and_grad(loss_fn))``, its oracle for
+the sparse path), which reaches ``w1`` through ``spmm``'s backward kernel.
 
 Device rule: ``device=None`` means CUDA and raises where there is none;
 the CPU runs only when asked for (``device="cpu"``), as the tests do. On
@@ -40,6 +50,7 @@ from repro_torch.utils import tree as tu
 from repro_torch.utils.logging import MetricsLog, log
 
 MERGE_COST = 5e-3  # virtual seconds charged per merge (the all-reduce)
+ENGINES = ("scan", "legacy_loop")
 
 
 @dataclass
@@ -84,14 +95,17 @@ class ElasticTrainer:
     speed: Optional[SpeedModel] = None
     seed: int = 0
     device: Any = None               # None = CUDA (raises without a card)
+    engine: str = "scan"             # 'scan' | 'legacy_loop' (see module doc)
+    sparse_grads: bool = True        # use the model's row-sparse grad path if
+                                     # it provides one; False = dense autograd
 
     def __post_init__(self):
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got {self.engine!r}")
         if self.cfg.placement != "vmap":
             raise ValueError(
                 f"only the 'vmap' placement is ported, got {self.cfg.placement!r}"
             )
-        if self.model.sparse_grad_fn is None:
-            raise ValueError("the port trains through the model's sparse_grad_fn")
         self.device = resolve_device(self.device)
         self.algo = algorithms.get(self.cfg.algorithm)
         if self.speed is None:
@@ -142,10 +156,26 @@ class ElasticTrainer:
     # ------------------------------------------------------------------
     # rounds
     # ------------------------------------------------------------------
-    def _round(self, replicas, momentum, batch, lr_vec, update_mask):
+    def _grads(self, replicas, batch):
+        """((loss, aux), grads) of every replica on its own batch."""
+        if self.sparse_grads and self.model.sparse_grad_fn is not None:
+            return self.model.sparse_grad_fn(replicas, batch)
+        # dense autograd: the leaves share storage with the replicas, and
+        # replica r's loss depends on replica r's parameters alone, so the
+        # gradient of the summed loss is every replica's own gradient
+        leaves = {k: p.detach().requires_grad_(True) for k, p in replicas.items()}
+        with torch.enable_grad():
+            loss, aux = self.model.loss_fn(leaves, batch)
+            grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
+        aux = {k: v.detach() for k, v in aux.items()}
+        return (loss.detach(), aux), dict(zip(leaves, grads))
+
+    def _round(self, replicas, momentum, batch, lr_vec, update_mask, live: bool):
         """One lockstep round over all R replicas: batched loss and
-        gradients, then the in-place SGD update."""
-        (loss, aux), grads = self.model.sparse_grad_fn(replicas, batch)
+        gradients, then the in-place SGD update. ``live`` (host) says
+        whether any replica is unmasked; a round without one leaves the
+        replicas as they are, the post-round hook included."""
+        (loss, aux), grads = self._grads(replicas, batch)
         transforms = self._transforms
         if transforms.grad_transform is not None:
             grads = transforms.grad_transform(grads, update_mask)
@@ -153,12 +183,11 @@ class ElasticTrainer:
             replicas, grads, lr_vec, self.sgd,
             momentum_state=momentum, update_mask=update_mask,
         )
-        if transforms.post_round is not None:
-            # every round of an unpadded plan has a live replica
+        if transforms.post_round is not None and live:
             replicas = transforms.post_round(replicas)
         return replicas, momentum, loss, aux
 
-    def _run_rounds(self, state: ElasticState, plan, b_slots: int):
+    def _run_rounds_scan(self, state: ElasticState, plan, b_slots: int):
         """Upload the stacked plan once, run its rounds on the device, and
         read the mega-batch's (loss, accuracy) back in one host sync."""
         grid = plan.payload_grid(self.cfg.n_replicas)
@@ -171,7 +200,8 @@ class ElasticTrainer:
         for r in range(plan.n_rounds):
             m = mask[r]
             replicas, momentum, loss, aux = self._round(
-                replicas, momentum, {k: v[r] for k, v in batches.items()}, lr, m
+                replicas, momentum, {k: v[r] for k, v in batches.items()}, lr, m,
+                live=bool(mask_np[r].any()),
             )
             sums = torch.stack([
                 (loss * m).sum(),
@@ -186,6 +216,28 @@ class ElasticTrainer:
         stats = torch.stack(stats)
         n_live = stats[:, 3].sum().clamp_min(1.0)
         loss, acc = (torch.stack([stats[:, 0].sum(), stats[:, 1].sum()]) / n_live).tolist()
+        return replicas, momentum, loss, acc
+
+    def _run_rounds_legacy(self, state: ElasticState, plan, b_slots: int):
+        """The reference's per-round host loop: one upload per round, empty
+        slots filled with ``provider.empty``, and the loss and accuracy of
+        each round with a live replica read back and averaged on the host."""
+        replicas, momentum = state.replicas, state.momentum
+        lr = torch.from_numpy(np.asarray(state.lr, np.float32)).to(self.device)
+        losses, accs = [], []
+        for row in plan.payload_grid(self.cfg.n_replicas):
+            payloads = [p if p is not None else self.provider.empty(b_slots) for p in row]
+            w = np.asarray([1.0 if p is not None else 0.0 for p in row], np.float32)
+            batch = _to_device(self.provider.stack(payloads), self.device)
+            replicas, momentum, loss, aux = self._round(
+                replicas, momentum, batch, lr, torch.from_numpy(w).to(self.device),
+                live=bool(w.sum() > 0),
+            )
+            if w.sum() > 0:
+                losses.append(float((loss.cpu().numpy() * w).sum() / w.sum()))
+                accs.append(float((aux["accuracy"].cpu().numpy() * w).sum() / w.sum()))
+        loss = float(np.mean(losses)) if losses else float("nan")
+        acc = float(np.mean(accs)) if accs else float("nan")
         return replicas, momentum, loss, acc
 
     # ------------------------------------------------------------------
@@ -249,7 +301,11 @@ class ElasticTrainer:
             return payload, self.provider.work_units(payload)
 
         plan = self.algo.plan(self.scheduler, state, mega_samples, fetch)
-        replicas, momentum, train_loss, train_acc = self._run_rounds(state, plan, b_slots)
+        run_rounds = (
+            self._run_rounds_legacy if self.engine == "legacy_loop"
+            else self._run_rounds_scan
+        )
+        replicas, momentum, train_loss, train_acc = run_rounds(state, plan, b_slots)
 
         # ---- non-finite guard: heal poisoned replicas before the barrier;
         # inert while every replica is finite ----

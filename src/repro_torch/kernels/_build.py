@@ -38,6 +38,8 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {
     # idx, val, mask, w, out, R, B, K, NF, H, dtype, stream
     "spmm_forward": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P],
+    # rows, samp, scale, dh, out, head, tail, R, S, B, NF, H, chunk, stream
+    "spmm_grad_w": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P],
     # reps, alphas, g, gp, gamma, out, R, N, dtype, momentum, stream
     "weighted_merge": [_P, _P, _P, _P, ctypes.c_float, _P, _I64, _I64, _I64, _I64, _P],
 }

@@ -1,9 +1,15 @@
-"""Public entry for the SpMM kernel (sparse XML input layer).
+"""Public entry for the SpMM kernels (sparse XML input layer).
 
-``spmm`` runs the plain version (``ref.spmm_ref``) on CPU tensors and the
-CUDA kernel (``csrc/spmm.cu``) on CUDA tensors; there is no switch that
-sends a CUDA tensor to the plain version. Forward only: the model emits
-d``w1`` itself as a RowSparseGrad, so no backward kernel is on this path.
+Port of ``repro/kernels/spmm/ops.py``. ``spmm`` is differentiable with
+respect to ``feat_val`` and ``w`` through a ``torch.autograd.Function``
+(the reference's ``jax.custom_vjp``): the forward is the row-gather kernel
+(``csrc/spmm.cu``), the backward for ``w`` the transpose kernel
+``spmm_grad_w`` (``csrc/spmm_grad_w.cu``), and the backward for
+``feat_val`` the plain gather-dot ``spmm_grad_val_ref``, which the
+reference also computes outside any kernel. CPU tensors run the plain
+versions (``ref.py``) and CUDA tensors the kernels; there is no switch that
+sends a CUDA tensor to a plain version. The sparse-gradient path calls
+``spmm`` under ``torch.no_grad()`` and so launches no backward kernel.
 """
 from __future__ import annotations
 
@@ -11,7 +17,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-from .ref import spmm_ref
+from .ref import spmm_grad_val_ref, spmm_grad_w_ref, spmm_ref
+
+# sorted slots per block of the grad_w kernel (csrc/spmm_grad_w.cu)
+GRAD_W_CHUNK = 128
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
 
 
 def spmm(feat_idx, feat_val, feat_mask, w):
@@ -20,32 +33,74 @@ def spmm(feat_idx, feat_val, feat_mask, w):
     idx (…, B, K) int32, val (…, B, K) f32, mask (…, B, K) bool and
     W (…, NF, H) f32/bf16, with an optional leading replica dim R shared by
     all four. Returns (…, B, H) in W's dtype, accumulated in f32.
+    Differentiable with respect to ``feat_val`` and ``w``.
     """
-    if all(t.device.type == "cpu" for t in (feat_idx, feat_val, feat_mask, w)):
+    return _Spmm.apply(feat_idx, feat_val, feat_mask, w)
+
+
+def _spmm_forward(feat_idx, feat_val, feat_mask, w):
+    if _on_cpu(feat_idx, feat_val, feat_mask, w):
         return spmm_ref(feat_idx, feat_val, feat_mask, w)
     return spmm_cuda(feat_idx, feat_val, feat_mask, w)
 
 
-def spmm_cuda(feat_idx, feat_val, feat_mask, w):
-    """Launch the CUDA kernel; raises on anything it does not take."""
-    tensors = (feat_idx, feat_val, feat_mask, w)
-    if w.device.type != "cuda" or any(t.device != w.device for t in tensors):
-        raise ValueError("spmm_cuda needs all four tensors on one CUDA device")
+class _Spmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat_idx, feat_val, feat_mask, w):
+        ctx.save_for_backward(feat_idx, feat_val, feat_mask, w)
+        return _spmm_forward(feat_idx, feat_val, feat_mask, w)
+
+    @staticmethod
+    def backward(ctx, dh):
+        feat_idx, feat_val, feat_mask, w = ctx.saved_tensors
+        dval = dw = None
+        if ctx.needs_input_grad[1]:
+            # d feat_val: gather-dot, same O(B*K*H) footprint as the forward
+            dval = spmm_grad_val_ref(feat_idx, feat_mask, w, dh).to(feat_val.dtype)
+        if ctx.needs_input_grad[3]:
+            dw = spmm_grad_w(feat_idx, feat_val, feat_mask, dh, w.shape[-2]).to(w.dtype)
+        return None, dval, None, dw
+
+
+def spmm_grad_w(feat_idx, feat_val, feat_mask, dh, n_rows: int):
+    """Transpose SpMM: dW[…, r] = sum_{idx[…,b,k]=r} val*mask*dh[…, b].
+
+    idx/val/mask (…, B, K), dh (…, B, H), with the same optional leading
+    replica dim. Returns (…, n_rows, H) f32; rows no slot names are 0.
+    Every ``idx`` must lie in [0, n_rows), as for ``spmm``.
+    """
+    if _on_cpu(feat_idx, feat_val, feat_mask, dh):
+        return spmm_grad_w_ref(feat_idx, feat_val, feat_mask, dh, n_rows)
+    return spmm_grad_w_cuda(feat_idx, feat_val, feat_mask, dh, n_rows)
+
+
+def _check_inputs(name, feat_idx, feat_val, feat_mask, dense):
+    """The checks both CUDA wrappers make; ``dense`` is W or dh."""
+    tensors = (feat_idx, feat_val, feat_mask, dense)
+    if dense.device.type != "cuda" or any(t.device != dense.device for t in tensors):
+        raise ValueError(f"{name} needs all four tensors on one CUDA device")
     if feat_idx.dtype != torch.int32 or feat_val.dtype != torch.float32:
-        raise TypeError("spmm_cuda needs int32 feat_idx and float32 feat_val")
-    if feat_mask.dtype != torch.bool or w.dtype not in _build.DTYPE_CODES:
-        raise TypeError("spmm_cuda needs bool feat_mask and float32/bfloat16 w")
+        raise TypeError(f"{name} needs int32 feat_idx and float32 feat_val")
+    if feat_mask.dtype != torch.bool:
+        raise TypeError(f"{name} needs bool feat_mask")
     if not (feat_idx.shape == feat_val.shape == feat_mask.shape):
         raise ValueError("feat_idx, feat_val and feat_mask must share one shape")
-    if w.ndim not in (2, 3) or feat_idx.ndim != w.ndim or (
-        w.ndim == 3 and feat_idx.shape[0] != w.shape[0]
+    if dense.ndim not in (2, 3) or feat_idx.ndim != dense.ndim or (
+        dense.ndim == 3 and feat_idx.shape[0] != dense.shape[0]
     ):
         raise ValueError(
-            f"need (B,K) with (NF,H) or (R,B,K) with (R,NF,H); got "
-            f"{tuple(feat_idx.shape)} and {tuple(w.shape)}"
+            f"{name}: need (B,K) with a 2-D tensor or (R,B,K) with a 3-D one; got "
+            f"{tuple(feat_idx.shape)} and {tuple(dense.shape)}"
         )
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("spmm_cuda needs contiguous tensors")
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
+def spmm_cuda(feat_idx, feat_val, feat_mask, w):
+    """Launch the forward CUDA kernel; raises on anything it does not take."""
+    _check_inputs("spmm_cuda", feat_idx, feat_val, feat_mask, w)
+    if w.dtype not in _build.DTYPE_CODES:
+        raise TypeError("spmm_cuda needs float32/bfloat16 w")
     B, K = feat_idx.shape[-2:]
     NF, H = w.shape[-2:]
     R = w.shape[0] if w.ndim == 3 else 1
@@ -62,3 +117,42 @@ def spmm_cuda(feat_idx, feat_val, feat_mask, w):
 
 
 spmm_cuda.launches = 0  # kernel launches since the last reset
+
+
+def spmm_grad_w_cuda(feat_idx, feat_val, feat_mask, dh, n_rows: int):
+    """Launch the transpose CUDA kernel; raises on anything it does not take.
+
+    Per replica the S = B*K slots are stable-sorted by row id here, as the
+    reference argsorts outside its Pallas kernel; every scale-and-reduce
+    step, the dh gathers included, runs in the kernel. ``dh`` is taken in
+    f32, as the reference casts it.
+    """
+    dh = dh.float().contiguous()
+    _check_inputs("spmm_grad_w_cuda", feat_idx, feat_val, feat_mask, dh)
+    if dh.shape[:-1] != feat_idx.shape[:-1]:
+        raise ValueError(f"dh {tuple(dh.shape)} does not match feat_idx "
+                         f"{tuple(feat_idx.shape)}")
+    B, K = feat_idx.shape[-2:]
+    H = dh.shape[-1]
+    R = dh.shape[0] if dh.ndim == 3 else 1
+    S = B * K
+    rows, order = torch.sort(feat_idx.reshape(R, S), dim=-1, stable=True)
+    samp = torch.div(order, K, rounding_mode="floor").int()
+    scale = (feat_val * feat_mask).reshape(R, S).gather(-1, order)
+    out = torch.zeros((R, n_rows, H), dtype=torch.float32, device=dh.device)
+    n_chunks = -(-S // GRAD_W_CHUNK)
+    head = torch.empty((R * n_chunks, H), dtype=torch.float32, device=dh.device)
+    tail = torch.empty_like(head)
+    with torch.cuda.device(dh.device):
+        err = _build.library().spmm_grad_w(
+            rows.data_ptr(), samp.data_ptr(), scale.data_ptr(), dh.data_ptr(),
+            out.data_ptr(), head.data_ptr(), tail.data_ptr(),
+            R, S, B, n_rows, H, GRAD_W_CHUNK,
+            torch.cuda.current_stream(dh.device).cuda_stream,
+        )
+    _build.check(err, "spmm_grad_w")
+    spmm_grad_w_cuda.launches += 1
+    return out if dh.ndim == 3 else out[0]
+
+
+spmm_grad_w_cuda.launches = 0  # kernel launches since the last reset

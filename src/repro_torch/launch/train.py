@@ -1,10 +1,10 @@
 """Training launcher for the PyTorch port.
 
 Port of ``repro/launch/train.py`` for the paper's sparse-XML workload:
-Adaptive SGD trains the 3-layer sparse MLP on synthetic XML data, with the
-same flags and log lines as the reference (the subset this port supports),
-plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
-versions).
+any registered algorithm trains the 3-layer sparse MLP on synthetic XML
+data, with the same flags and log lines as the reference (the subset this
+port supports: ``--engine`` and ``--dense-grads`` included), plus
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
@@ -19,7 +19,7 @@ import os
 from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import algorithms
 from repro_torch.core.heterogeneity import SpeedModel
-from repro_torch.core.trainer import ElasticTrainer
+from repro_torch.core.trainer import ENGINES, ElasticTrainer
 from repro_torch.data.providers import SparseProvider
 from repro_torch.data.sparse import train_test_split
 from repro_torch.data.xml_synth import make_xml_dataset
@@ -49,6 +49,12 @@ def main(argv=None):
     ap.add_argument("--workload", default="xml", choices=["xml"])
     ap.add_argument("--algorithm", default="adaptive", choices=list(algorithms.available()),
                     help="any algorithm in the core/algorithms registry")
+    ap.add_argument("--engine", default="scan", choices=list(ENGINES),
+                    help="mega-batch executor: device-resident scan (default)"
+                         " or the per-round host loop")
+    ap.add_argument("--dense-grads", action="store_true",
+                    help="force dense autodiff instead of the row-sparse"
+                         " gradient path (the differential oracle)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on; 'cpu' runs the kernels' plain versions")
     ap.add_argument("--replicas", type=int, default=4)
@@ -80,7 +86,7 @@ def main(argv=None):
     trainer = ElasticTrainer(
         model=model, provider=provider, cfg=ecfg,
         base_lr=args.lr, speed=speed, seed=args.seed,
-        device=args.device,
+        device=args.device, engine=args.engine, sparse_grads=not args.dense_grads,
     )
     state, mlog = trainer.run(args.megabatches, test_batches=test_batches, verbose=True)
     final = mlog.records[-1] if mlog.records else {}

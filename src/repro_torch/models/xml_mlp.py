@@ -11,10 +11,13 @@ Every function takes parameters with or without a leading replica dim R
 dim. Parameters keep the reference's layout (``w2`` is (H, NC), not
 ``nn.Linear``'s (NC, H)), so both packages compute the same function.
 
-Training runs the sparse-gradient path: ``loss_and_sparse_grad`` runs
-autograd over the dense head only and emits d``w1`` as a RowSparseGrad —
+Two gradient paths, as in the reference. The sparse one (the default,
+``sparse_grads=True``): ``loss_and_sparse_grad`` runs autograd over the
+dense head only and emits d``w1`` as a RowSparseGrad —
 ``vals[b,k] = val[b,k]*mask[b,k] * dh[b]`` on rows ``idx[b,k]`` — so no
-dense (NF, H) gradient exists and ``spmm`` needs no backward.
+dense (NF, H) gradient exists. The dense one (``sparse_grads=False``, the
+reference's oracle): autograd through ``loss_fn``, whose ``spmm`` carries
+its own backward (the ``spmm_grad_w`` kernel on the card).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ class XMLMLPConfig:
     n_classes: int
     hidden: int = 128
     dtype: torch.dtype = torch.float32
+    sparse_grads: bool = True  # row-sparse d w1 (False: dense autograd)
 
 
 def init_params(cfg: XMLMLPConfig, generator: torch.Generator) -> dict:
@@ -104,7 +108,8 @@ def forward(cfg: XMLMLPConfig, params: dict, batch: dict) -> torch.Tensor:
 
 
 def loss_fn(cfg: XMLMLPConfig, params: dict, batch: dict):
-    """Returns (loss, aux) with aux = dict(accuracy, n_valid)."""
+    """Returns (loss, aux) with aux = dict(accuracy, n_valid). Autograd
+    reaches every parameter, ``w1`` through ``spmm``'s backward."""
     rest = {k: v for k, v in params.items() if k != "w1"}
     return _head_loss(_input_layer(params["w1"], batch), rest, batch)
 
@@ -141,10 +146,13 @@ def loss_and_sparse_grad(cfg: XMLMLPConfig, params: dict, batch: dict):
 
 
 def make_model(cfg: XMLMLPConfig) -> TrainableModel:
-    """Bundle (init, loss, sparse_grad) as the trainer's TrainableModel."""
+    """Bundle (init, loss[, sparse_grad]) as the trainer's TrainableModel."""
     return TrainableModel(
         init=lambda generator: init_params(cfg, generator),
         loss_fn=lambda params, batch: loss_fn(cfg, params, batch),
-        sparse_grad_fn=lambda params, batch: loss_and_sparse_grad(cfg, params, batch),
+        sparse_grad_fn=(
+            (lambda params, batch: loss_and_sparse_grad(cfg, params, batch))
+            if cfg.sparse_grads else None
+        ),
         config=cfg,
     )

@@ -42,6 +42,15 @@ class RowSparseGrad:
         return out.reshape(*lead, self.n_rows, H)
 
 
+def is_row_sparse(x) -> bool:
+    return isinstance(x, RowSparseGrad)
+
+
+def densify_tree(grads: dict) -> dict:
+    """Replace every RowSparseGrad leaf with its dense scatter-add."""
+    return {k: g.densify() if is_row_sparse(g) else g for k, g in grads.items()}
+
+
 def flat_rows(rows: torch.Tensor, n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(L, S) row ids -> ((L*S,) int64 ids into the (L*n_rows, H) flattening
     of an (L, n_rows, H) parameter, (L*S,) in-bounds mask). Sentinel slots

@@ -30,3 +30,14 @@ def tree_broadcast_replicas(a: dict, n: int) -> dict:
     """Copy a tree (no replica dim) into n replicas. The copies are
     materialized (not an ``expand`` view): rounds update replicas in place."""
     return tree_map(lambda l: l.unsqueeze(0).repeat((n,) + (1,) * l.ndim), a)
+
+
+def tree_replica_mean_keepdims(a: dict) -> dict:
+    """f32 mean over the replica dim, kept as a dim of size 1, leafwise:
+    the cross-replica averaging primitive of the sync/crossbow family."""
+    return tree_map(lambda l: l.float().mean(dim=0, keepdim=True), a)
+
+
+def tree_replica_slice(a: dict, i: int) -> dict:
+    """Replica i of every leaf, as a copy: rounds update replicas in place."""
+    return tree_map(lambda l: l[i].clone(), a)

@@ -130,3 +130,27 @@ def test_launcher_runs_end_to_end_on_cpu(tmp_path):
     assert [r["megabatch"] for r in records] == [1, 2]
     assert all(np.isfinite(r["train_loss"]) and 0.0 <= r["accuracy"] <= 1.0 for r in records)
     assert records == json.loads(json.dumps(mlog.records))
+
+
+def test_launcher_dense_grads_legacy_loop_sync_on_cpu(tmp_path):
+    """--dense-grads --engine legacy_loop --algorithm sync: the same records
+    as the scan engine's sparse run of the same flags."""
+    def run(*extra):
+        out = tmp_path / f"log{len(extra)}.json"
+        port_train.main([
+            "--workload", "xml", "--algorithm", "sync", "--device", "cpu",
+            "--replicas", "4", "--megabatches", "2", "--mega-batch", "10",
+            "--b-max", str(B_MAX), "--samples", "1024", "--features", str(NF),
+            "--classes", str(NC), "--avg-nnz", "16", "--hidden", str(H),
+            "--out", str(out), *extra,
+        ])
+        return json.loads(out.read_text())
+
+    dense = run("--dense-grads", "--engine", "legacy_loop")
+    sparse = run()
+    assert [r["megabatch"] for r in dense] == [1, 2]
+    for a, b in zip(dense, sparse):
+        for k in EXACT:
+            assert a[k] == b[k], k
+        for k in ("train_loss", "train_accuracy", "accuracy", "test_loss"):
+            np.testing.assert_allclose(a[k], b[k], err_msg=k, **TOL)

@@ -109,3 +109,23 @@ def test_init_params_from_a_generator():
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     assert abs(a["w1"].std().item() - 300 ** -0.5) < 0.2 * 300 ** -0.5
     assert not a["b1"].any()
+
+
+def test_dense_model_w1_grad_equals_densified_sparse_grad(setup):
+    """make_model(sparse_grads=False) has no sparse_grad_fn; autograd through
+    its loss reaches w1 via spmm's backward and equals the sparse path's
+    RowSparseGrad, densified. The other leaves' gradients agree too."""
+    _, pcfg, batches, reps = setup
+    dense_cfg = port.XMLMLPConfig(n_features=NF, n_classes=NC, hidden=H, sparse_grads=False)
+    model = port.make_model(dense_cfg)
+    assert model.sparse_grad_fn is None
+    assert port.make_model(pcfg).sparse_grad_fn is not None
+    params = {k: v.requires_grad_(True) for k, v in _t(reps).items()}
+    loss, _ = model.loss_fn(params, _t(batches))
+    grads = dict(zip(params, torch.autograd.grad(loss.sum(), list(params.values()))))
+    (sloss, _), sgrads = port.loss_and_sparse_grad(pcfg, _t(reps), _t(batches))
+    np.testing.assert_allclose(loss.detach().numpy(), sloss.numpy(), **TOL)
+    assert grads["w1"].shape == (R, NF, H)
+    np.testing.assert_allclose(grads["w1"].numpy(), sgrads["w1"].densify().numpy(), **TOL)
+    for k in ("b1", "w2", "b2"):
+        np.testing.assert_allclose(grads[k].numpy(), sgrads[k].numpy(), **TOL)
