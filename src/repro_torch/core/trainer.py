@@ -47,6 +47,7 @@ from repro_torch.core.scheduler import DynamicScheduler
 from repro_torch.models.protocol import TrainableModel
 from repro_torch.optim.sgd import SGDConfig, init_momentum, sgd_update
 from repro_torch.utils import tree as tu
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import MetricsLog, log
 
 MERGE_COST = 5e-3  # virtual seconds charged per merge (the all-reduce)
@@ -62,23 +63,6 @@ class ElasticState:
     b: np.ndarray                    # per-replica batch size (may be fractional)
     lr: np.ndarray                   # per-replica learning rate
     megabatch_idx: int = 0
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` -> the CUDA device, raising if there is none. On the card,
-    f32 matrix products and convolutions run in full f32: TF32 keeps about
-    three decimal digits and the reference computes in f32."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to train on the CPU"
-            )
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return device
 
 
 def _to_device(arrays: dict, device: torch.device) -> dict:

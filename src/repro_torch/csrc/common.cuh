@@ -1,4 +1,5 @@
-// Helpers shared by the port's kernels: vector packs and f32 conversions.
+// Helpers shared by the port's kernels: vector packs, f32 conversions and
+// 64-bit min/max.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +39,13 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+__host__ __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
+  return a > b ? a : b;
 }
 
 inline bool aligned_to(const void* p, uintptr_t bytes) {

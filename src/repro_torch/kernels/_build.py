@@ -42,6 +42,13 @@ SIGNATURES = {
     "spmm_grad_w": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P],
     # reps, alphas, g, gp, gamma, out, R, N, dtype, momentum, stream
     "weighted_merge": [_P, _P, _P, _P, ctypes.c_float, _P, _I64, _I64, _I64, _I64, _P],
+    # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, window, dtype, stream
+    "flash_attention": [_P, _P, _P, _P] + [_I64] * 9 + [_P],
+    # x, dA, Bm, Cm, y, final, B, L, H, P, N, chunk, Bm/Cm strides (b, l, h),
+    # x dtype, Bm/Cm dtype, stream
+    "ssd_scan": [_P] * 6 + [_I64] * 11 + [_P],
+    # buf, wi, wg, wo, scratch, out, E, C, D, F, dtype, stream
+    "moe_ffn_gmm": [_P] * 6 + [_I64] * 5 + [_P],
 }
 
 

@@ -1,0 +1,58 @@
+"""Public entry for the flash-attention kernel.
+
+Port of ``repro/kernels/flash_attention/ops.py``. CPU tensors run the plain
+version (``ref.attention_ref``), CUDA tensors the kernel
+(``csrc/flash_attention.cu``); nothing sends a CUDA tensor to the plain
+version. The reference's ``block_q``/``block_k`` are TPU tile sizes with no
+meaning for the CUDA kernel (its tiles are fixed at 64 x 64) and are
+dropped from the signature.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+from .ref import attention_ref
+
+# head dims the kernel is compiled for (csrc/flash_attention.cu)
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """GQA-native attention. q (B,Sq,Hq,hd); k/v (B,Skv,Hkv,hd) -> (B,Sq,Hq,hd)."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window=0):
+    """Launch the CUDA kernel; raises on anything it does not take."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention_cuda needs q, k and v on one CUDA device")
+    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention_cuda needs q, k and v all float32 or all bfloat16")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"need q (B,Sq,Hq,hd) and k/v (B,Skv,Hkv,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hq, hd = q.shape
+    _, skv, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != hd or hkv == 0 or hq % hkv:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda takes head dims {HEAD_DIMS}, not {hd}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_cuda needs contiguous q, k and v")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _build.library().flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, skv, hq, hkv, hd, int(causal), int(window), _build.DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(err, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0  # kernel launches since the last reset

@@ -1,0 +1,279 @@
+"""Shared transformer layers: RMSNorm, RoPE, GQA attention (blockwise online
+softmax, the flash kernel, one-token decode), SwiGLU MLP, embeddings.
+
+Port of ``repro/models/layers.py``. Every layer is a plain function over a
+dict of tensors, with the reference's parameter names and layouts
+(attention (B, S, H, hd)), so weights carried over from the reference
+compare like with like. The reference's ``shard(...)`` annotations have no
+meaning on one card and are dropped.
+
+Attention paths (both grouped-query native: repeated KV heads are never
+materialized; q is reshaped to (B, S, Hkv, rep, hd) against the raw KV):
+  * ``blockwise_attention`` — chunked online softmax in plain PyTorch, the
+    model's own path for prefill; ``use_flash`` swaps in the CUDA kernel
+    (``kernels/flash_attention``) where no key mask is given.
+  * ``decode_attention``    — one-token query against a KV cache, updated
+    in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+
+
+def ninit(generator: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    """Normal(0, scale) in f32 on the generator's device, cast to ``dtype``."""
+    return (torch.randn(shape, generator=generator, device=generator.device) * scale).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms / rope
+# --------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + gain.float())).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: (..., S) or (S,)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs          # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                   # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def _heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) x (D, H, hd) -> (B, S, H, hd), contiguous."""
+    d, n, hd = w.shape
+    return (h @ w.reshape(d, n * hd)).view(*h.shape[:-1], n, hd)
+
+
+def _merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) x (H, hd, D) -> (B, S, D)."""
+    n, hd, d = w.shape
+    return o.reshape(*o.shape[:-2], n * hd) @ w.reshape(n * hd, d)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+
+def init_attention(generator, d_model: int, n_heads: int, n_kv: int, head_dim: int, dtype):
+    s = d_model ** -0.5
+    return {
+        "wq": ninit(generator, (d_model, n_heads, head_dim), s, dtype),
+        "wk": ninit(generator, (d_model, n_kv, head_dim), s, dtype),
+        "wv": ninit(generator, (d_model, n_kv, head_dim), s, dtype),
+        "wo": ninit(generator, (n_heads, head_dim, d_model), (n_heads * head_dim) ** -0.5, dtype),
+        "norm": torch.zeros((d_model,), dtype=dtype, device=generator.device),
+    }
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_chunk: int = 512,
+    kv_chunk: int = 512,
+    kv_seq_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Online-softmax chunked attention, grouped-query native.
+
+    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) with Hq % Hkv == 0.
+    window > 0 = sliding-window causal attention (token i attends to
+    [i-window+1, i]); ``kv_seq_mask`` (B, Skv) masks keys. Returns
+    (B, Sq, Hq, hd) in q's dtype; the math is f32.
+    """
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if sq % q_chunk:
+        q_chunk = sq
+    if skv % kv_chunk:
+        kv_chunk = skv
+    nq, nkv = sq // q_chunk, skv // kv_chunk
+    scale = hd ** -0.5
+    dev = q.device
+
+    # (nq, B, Hkv, rep, qc, hd) and (nkv, B, Hkv, kvc, hd)
+    qc = q.reshape(b, nq, q_chunk, hkv, rep, hd).permute(1, 0, 3, 4, 2, 5)
+    kc = k.reshape(b, nkv, kv_chunk, hkv, hd).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(b, nkv, kv_chunk, hkv, hd).permute(1, 0, 3, 2, 4)
+    if kv_seq_mask is not None:
+        mc = kv_seq_mask.reshape(b, nkv, kv_chunk).permute(1, 0, 2)   # (nkv, B, kvc)
+    else:
+        mc = torch.ones((nkv, b, kv_chunk), dtype=torch.bool, device=dev)
+    q_pos = torch.arange(sq, device=dev).reshape(nq, q_chunk)
+    kv_pos = torch.arange(skv, device=dev).reshape(nkv, kv_chunk)
+
+    outs = []
+    for i in range(nq):
+        q_i, qp = qc[i].float(), q_pos[i]
+        acc = torch.zeros((b, hkv, rep, q_chunk, hd), dtype=torch.float32, device=dev)
+        m = torch.full((b, hkv, rep, q_chunk), float("-inf"), device=dev)
+        l = torch.zeros((b, hkv, rep, q_chunk), dtype=torch.float32, device=dev)
+        for j in range(nkv):
+            s = torch.einsum("bhrqd,bhkd->bhrqk", q_i, kc[j].float()) * scale
+            allow = mc[j][:, None, None, None, :]                       # (B,1,1,1,kvc)
+            rel = qp[:, None] - kv_pos[j][None, :]                      # (qc, kvc)
+            if causal:
+                allow = allow & (rel >= 0)
+            if window > 0:
+                allow = allow & (rel < window)
+            s = torch.where(allow, s, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)        # fully masked rows
+            p = torch.where(allow, torch.exp(s - m_safe[..., None]), 0.0)
+            corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_safe))
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhrqk,bhkd->bhrqd", p, vc[j].float())
+            m = m_new
+        outs.append(acc / l[..., None].clamp_min(1e-30))
+    out = torch.stack(outs)                                             # (nq,B,Hkv,rep,qc,hd)
+    return out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def attention_layer(
+    params: dict,
+    x: torch.Tensor,
+    *,
+    n_rep: int,
+    rope_theta: float,
+    causal: bool = True,
+    window: int = 0,
+    positions: Optional[torch.Tensor] = None,
+    kv_seq_mask: Optional[torch.Tensor] = None,
+    norm_eps: float = 1e-5,
+    q_chunk: int = 512,
+    kv_chunk: int = 512,
+    use_flash: bool = False,
+) -> torch.Tensor:
+    """Pre-norm self-attention block: x + attn(norm(x)). x: (B, S, D).
+    (The reference's cross-attention variant comes with the
+    encoder-decoder path.)"""
+    s = x.shape[1]
+    h = rmsnorm(x, params["norm"], norm_eps)
+    q = _heads(h, params["wq"])
+    k = _heads(h, params["wk"])
+    v = _heads(h, params["wv"])
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    if use_flash and kv_seq_mask is None:
+        o = flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        o = blockwise_attention(
+            q, k, v, causal=causal, window=window,
+            q_chunk=q_chunk, kv_chunk=kv_chunk, kv_seq_mask=kv_seq_mask,
+        )
+    return x + _merge_heads(o, params["wo"])
+
+
+def decode_attention(
+    params: dict,
+    x: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    cur_len: int,
+    *,
+    n_rep: int,
+    rope_theta: float,
+    window: int = 0,
+    norm_eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token self-attention decode. x: (B, 1, D); cache_k/v: (B, S, Hkv, hd).
+
+    Grouped-query native: the cache is never head-repeated. The new token's
+    K/V are written into ``cache_k``/``cache_v`` in place (the reference
+    returns updated copies); returns (out, cache_k, cache_v). ``cur_len``
+    is the number of valid cache entries before this token. With
+    ``window`` > 0 the cache is a rolling buffer of size S = window.
+    """
+    b = x.shape[0]
+    s_cache, hkv = cache_k.shape[1], cache_k.shape[2]
+    h = rmsnorm(x, params["norm"], norm_eps)
+    q = _heads(h, params["wq"])                                          # (B,1,Hq,hd)
+    k = _heads(h, params["wk"])
+    v = _heads(h, params["wv"])
+    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos, rope_theta)
+    k = apply_rope(k, pos, rope_theta)
+    slot = cur_len % s_cache if window > 0 else cur_len
+    slot = min(slot, s_cache - 1)  # dynamic_update_slice clamps its start
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    hq, hd = q.shape[2], q.shape[3]
+    qg = q.reshape(b, hkv, hq // hkv, hd)                                # Sq == 1 folded out
+    # f32 accumulation without casting the cache's storage dtype: bf16
+    # products are exact in f32, as with the reference's preferred_element_type
+    s = torch.einsum("bhrk,bshk->bhrs", qg.float(), cache_k.float()) * hd ** -0.5
+    valid = torch.arange(s_cache, device=x.device) < min(cur_len + 1, s_cache)
+    s = torch.where(valid, s, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(cache_v.dtype)
+    o = torch.einsum("bhrs,bshk->bhrk", p.float(), cache_v.float())
+    o = o.reshape(b, 1, hq, hd).to(x.dtype)
+    return x + _merge_heads(o, params["wo"]), cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLP (SwiGLU)
+# --------------------------------------------------------------------------
+
+
+def init_mlp(generator, d_model: int, d_ff: int, dtype):
+    return {
+        "wi": ninit(generator, (d_model, d_ff), d_model ** -0.5, dtype),
+        "wg": ninit(generator, (d_model, d_ff), d_model ** -0.5, dtype),
+        "wo": ninit(generator, (d_ff, d_model), d_ff ** -0.5, dtype),
+        "norm": torch.zeros((d_model,), dtype=dtype, device=generator.device),
+    }
+
+
+def mlp_layer(params: dict, x: torch.Tensor, norm_eps: float = 1e-5) -> torch.Tensor:
+    h = rmsnorm(x, params["norm"], norm_eps)
+    g = F.silu(h @ params["wg"])
+    u = h @ params["wi"]
+    return x + (g * u) @ params["wo"]
+
+
+# --------------------------------------------------------------------------
+# embeddings
+# --------------------------------------------------------------------------
+
+
+def init_embedding(generator, vocab: int, d_model: int, dtype):
+    return {"table": ninit(generator, (vocab, d_model), d_model ** -0.5, dtype)}
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def unembed(params: dict, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
+    logits = x.float() @ params["table"].float().T
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits

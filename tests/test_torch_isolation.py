@@ -49,3 +49,13 @@ def test_trainer_without_device_needs_cuda(monkeypatch):
     model = make_model(XMLMLPConfig(n_features=16, n_classes=4, hidden=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ElasticTrainer(model, provider=None, cfg=ElasticConfig())
+
+
+def test_serve_launcher_without_device_needs_cuda(monkeypatch):
+    """The serving launcher's default device is the card: without one it
+    raises instead of running on the CPU."""
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3.2-1b", "--reduced", "--gen", "1", "--context", "2"])
