@@ -22,13 +22,16 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    of its chunking held against an f64 scatter, and spmm's autograd
    Function (dW and d feat_val) must agree with autograd through the plain
    forward. The LM serving kernels likewise: flash_attention at the
-   llama3.2-1b and moonshot-v1-16b-a3b prefill shapes, ssd_scan at the
-   mamba2-780m one, moe_ffn_gmm at the moonshot one (bf16, B = 2, S = 4096),
-   plus the reference's test shapes (ragged, windowed, non-causal, f32 and
-   bf16), with the reference's tolerances except flash_attention at
-   S = 4096 (one bf16 ulp per element, relative L2 error 1e-2); each timed
-   beside its bound, its plain version and, where one exists, one PyTorch
-   call (SDPA; three bmm).
+   llama3.2-1b, moonshot-v1-16b-a3b and kimi-k2 (hd 112) prefill shapes,
+   ssd_scan at the mamba2-780m one, moe_ffn_gmm at the moonshot one (bf16,
+   B = 2, S = 4096; kimi-k2 B = 1), plus the reference's test shapes
+   (ragged, windowed, non-causal, f32 and bf16; the bf16 ones reach the
+   tensor-core paths of flash_attention and moe_ffn_gmm, the f32 ones their
+   CUDA-core paths) and every head dim flash_attention takes on both paths,
+   with the reference's tolerances except flash_attention at S = 4096 (one
+   bf16 ulp per element, relative L2 error 1e-2); each timed beside its
+   bound, its plain version and, where one exists, one PyTorch call (SDPA;
+   three bmm).
 4. slice   — the port's trainer on the card against the same trainer on the
    CPU (plain versions), same weights and data, small width: every
    registered algorithm, plus adaptive and sync with dense gradients and
@@ -57,13 +60,16 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    4,096): llama3.2-1b (16 layers) and mamba2-780m (48 layers) at full
    depth, moonshot-v1-16b-a3b cut to 4 of its 48 layers (1 dense, 3 MoE).
    Each prefill runs with the kernel flags on, its launch counts equal to
-   the layers that reach each kernel, its last-position logits held
+   the layers that reach each kernel, every flash_attention and
+   moe_ffn_gmm launch on the tensor-core path, its last-position logits held
    against the flags-off prefill (the model's plain paths on the card);
    the flags-off prefill is timed cold and warm (median of three); then
    peak device memory, one prefill with the flags on and one with them off
    under the profiler, ``greedy_generate`` (32-token prompt, 16
    new tokens; decode steps/s the median of three runs) and one greedy run
-   under the profiler (the device's busy share of a decode step).
+   under the profiler (the device's busy share of a decode step). Last,
+   moonshot's last-position logits over eight more token draws: flags on
+   and off against each other and against an f32 prefill (printed only).
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. The data are synthetic, drawn from
@@ -97,10 +103,13 @@ ATTN_TOL = dict(rtol=2e-4, atol=2e-4)        # flash_attention and moe_gmm, f32
 BF16_ATTN_TOL = dict(rtol=3e-2, atol=3e-2)   # flash_attention and ssd_scan, bf16
 # flash_attention at the S = 4096 prefill shapes: an output row averages v
 # over up to 4096 keys, so |o| is often ~0.03 and the 3e-2 above (set for
-# 128-long rows) would pass a kernel that drops a KV tile. Both sides
-# compute in f32 and round to bf16 once, so they differ by at most one bf16
-# ulp (under 2^-7 of the value): hold each element to that, and the whole
-# output to a relative L2 error of 1e-2.
+# 128-long rows) would pass a kernel that drops a KV tile. The plain version
+# computes in f32; the kernel's bf16 path sums exact products of the bf16
+# inputs in f32 and takes P into P.V as a bf16 hi/lo pair (P to 2^-16 of
+# itself; P rounded once to bf16 fails this check, see
+# tests/test_torch_lm_kernels.py). Both round to bf16 once, so they differ by
+# at most one bf16 ulp (under 2^-7 of the value): hold each element to that,
+# and the whole output to a relative L2 error of 1e-2.
 BF16_LONG_ATTN_TOL = dict(rtol=1e-2, atol=1e-3, rel_l2=1e-2)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)         # ssd_scan, f32
 # ssd_scan at the main shape: f32 sums over 256-long chunks and a 16-chunk
@@ -233,8 +242,10 @@ def main() -> int:
     from repro_torch.kernels.spmm.ref import spmm_grad_w_ref, spmm_ref
     from repro_torch.kernels.weighted_merge.ops import merge_cuda
     from repro_torch.kernels.weighted_merge.ref import weighted_merge_ref
-    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import PATHS as FLASH_PATHS
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.moe_gmm.ops import PATHS as GMM_PATHS
     from repro_torch.kernels.moe_gmm.ops import moe_ffn_gmm_cuda
     from repro_torch.kernels.moe_gmm.ref import moe_ffn_gmm_ref
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
@@ -286,17 +297,18 @@ def main() -> int:
     results = {}
 
     def measure(label, kernel_fn, plain_fn, library_fn, nbytes, flops, tol,
-                peak=H100_F32_FLOPS):
+                peak=H100_F32_FLOPS, path="cuda_core"):
         """Check the kernel against its plain version, then time all three
         (``library_fn`` None: no single PyTorch call computes it). ``peak``
-        is the card's rate for the inputs' type."""
+        is the card's rate for the inputs' type; ``path`` the kernel's path
+        for them (tensor or CUDA cores)."""
         got, want = kernel_fn(), plain_fn()
         pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
         err = max(check_close(label, g, w, tol) for g, w in pairs)
         del got, want
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
         r = dict(max_abs_err=err, bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+                 bound_by="bytes" if t_bytes >= t_ops else "operations", path=path)
         # ms: device time from the profiler trace (the CUDA-event time
         # where the trace shows none); call_ms: CUDA events around each
         # call, which also count the host's cost of issuing it
@@ -494,7 +506,7 @@ def main() -> int:
             lambda: flash_attention_cuda(q, k, v, causal=causal, window=window),
             lambda: attention_ref(q, k, v, causal=causal, window=window), lib,
             nbytes=(2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-            flops=4 * b * hq * hd * pairs, tol=tol, peak=peak[dtype],
+            flops=4 * b * hq * hd * pairs, tol=tol, peak=peak[dtype], path=FLASH_PATHS[dtype],
         )
 
     results["flash_attention"] = flash_case(
@@ -502,14 +514,37 @@ def main() -> int:
         torch.bfloat16, BF16_LONG_ATTN_TOL, library=True)
     flash_case("moonshot bf16 (2,4096,16/16,128) causal", 2, 4096, 4096, 16, 16, 128, True, 0,
                torch.bfloat16, BF16_LONG_ATTN_TOL, library=True)
+    # kimi-k2-1t-a32b's attention (64 q heads, 8 kv heads, head dim 112)
+    flash_case("kimi-k2 bf16 (1,4096,64/8,112) causal", 1, 4096, 4096, 64, 8, 112, True, 0,
+               torch.bfloat16, BF16_LONG_ATTN_TOL, library=True)
     for case in ((2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 8, 2, 32, True, 64),
                  (2, 96, 160, 4, 4, 64, False, 0), (1, 200, 200, 2, 1, 64, True, 0)):
         flash_case(f"f32 {case}", *case, torch.float32, ATTN_TOL)
-    flash_case("bf16 (1,128,128,4,2,64)", 1, 128, 128, 4, 2, 64, True, 0, torch.bfloat16,
-               BF16_ATTN_TOL)
+    for case in ((1, 128, 128, 4, 2, 64, True, 0), (1, 200, 200, 2, 1, 64, True, 0),
+                 (1, 256, 256, 8, 2, 32, True, 64), (2, 96, 160, 4, 4, 64, False, 0),
+                 (1, 192, 192, 8, 1, 112, True, 0), (1, 256, 256, 4, 2, 128, True, 96)):
+        flash_case(f"bf16 {case}", *case, torch.bfloat16, BF16_ATTN_TOL)
+    # every head dim the kernel takes, on both paths (ragged, GQA, causal)
+    for hd in HEAD_DIMS:
+        for dtype, tol in ((torch.float32, ATTN_TOL), (torch.bfloat16, BF16_ATTN_TOL)):
+            q, k, v = randn(1, 200, 4, hd, dtype=dtype), randn(1, 200, 2, hd, dtype=dtype), \
+                randn(1, 200, 2, hd, dtype=dtype)
+            err = check_close(f"flash_attention[{FLASH_PATHS[dtype]} hd {hd}]",
+                              flash_attention_cuda(q, k, v), attention_ref(q, k, v), tol)
+            print(f"kernel flash_attention[{FLASH_PATHS[dtype]} hd {hd} (1,200,200,4,2)]: "
+                  f"max_abs_err {err:.4g}")
+    for hd in (8, 24, 136):  # no multiple of 16 in [16, 128]: refused before launch
+        q = randn(1, 64, 2, hd, dtype=torch.bfloat16)
+        try:
+            flash_attention_cuda(q, q, q)
+        except ValueError:
+            continue
+        raise RuntimeError(f"flash_attention_cuda took head dim {hd}")
     torch.cuda.empty_cache()
 
     def gmm_case(name, e, c, d, f, dtype, tol, library=False):
+        # bf16 reaches the tensor-core path; (2,100,64,300) also the
+        # wrapper's padding of F to a multiple of 8
         buf = randn(e, c, d, scale=0.5, dtype=dtype)
         pad_rows = torch.rand((e, c), generator=gen, device=dev) > 0.8  # capacity padding
         buf[pad_rows] = 0
@@ -527,7 +562,7 @@ def main() -> int:
             lambda: moe_ffn_gmm_cuda(buf, wi, wg, wo),
             lambda: moe_ffn_gmm_ref(buf, wi, wg, wo), lib,
             nbytes=(2 * buf.numel() + 3 * wi.numel()) * buf.element_size(),
-            flops=6 * e * c * d * f, tol=tol, peak=peak[dtype],
+            flops=6 * e * c * d * f, tol=tol, peak=peak[dtype], path=GMM_PATHS[dtype],
         )
 
     results["moe_ffn_gmm"] = gmm_case("moonshot bf16 (64,960,2048,1408)", 64, 960, 2048, 1408,
@@ -628,9 +663,14 @@ def main() -> int:
                 "spmm_grad_w": spmm_grad_w_cuda, "flash_attention": flash_attention_cuda,
                 "ssd_scan": ssd_scan_cuda, "moe_ffn_gmm": moe_ffn_gmm_cuda}
 
+    # the kernels with a tensor-core path count its launches apart
+    tensor_core = ("flash_attention", "moe_ffn_gmm")
+
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
+        for name in tensor_core:
+            counters[name].tensor_core_launches = 0
 
     def read_counts():
         return {name: fn.launches for name, fn in counters.items()}
@@ -835,6 +875,7 @@ def main() -> int:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts, want = lm_counts(), layer_launches(cfg)
+        tc_counts = {name: counters[name].tensor_core_launches for name in tensor_core}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         t0 = time.perf_counter()
         prefill(params, batch)
@@ -862,11 +903,15 @@ def main() -> int:
               f"flags on {first_s:.3f} s first, {warm_s:.3f} s warm; flags off {off_s[0]:.3f} s "
               f"first, {off_warm[1]:.3f} s warm (median of "
               f"{', '.join(f'{t:.3f}' for t in off_warm)}); "
-              f"peak device memory {peak_gb:.2f} GB; launches {counts} (expected {want}); "
+              f"peak device memory {peak_gb:.2f} GB; launches {counts} (expected {want}), "
+              f"on the tensor cores {tc_counts}; "
               f"logits on vs off rel L2 err {rel:.3g} (tol 5e-2), max abs err "
               f"{(on - off).abs().max().item():.3g}, argmax agreement {agree:.2f}")
         if counts != want:
             raise RuntimeError(f"prefill {arch}: launch counts {counts} != expected {want}")
+        if any(tc_counts[name] != counts[name] for name in tensor_core):
+            raise RuntimeError(f"prefill {arch}: bf16 launches {counts} not all on the tensor-core "
+                               f"path {tc_counts}")
         if not (torch.isfinite(on).all() and rel <= 5e-2):
             raise RuntimeError(f"prefill {arch}: kernel and plain prefill disagree")
         profile_call(f"prefill {arch}", lambda: prefill(params, batch), top=8)
@@ -888,6 +933,29 @@ def main() -> int:
             raise RuntimeError(f"decode {arch}: bad tokens {toks}")
         del params, tokens, batch, on, off
         torch.cuda.empty_cache()
+
+    # moonshot's router picks 6 of 64 experts a token and drops what
+    # overflows an expert's capacity: a decision flipped by bf16 rounding for
+    # a batch row's last token moves its logits far more than rounding alone.
+    # Over eight token draws, both bf16 prefills (flags on and off) against
+    # an f32 prefill of the same weights (flags off) show which of them the
+    # on/off gap above comes from. Printed, not checked.
+    base = dataclasses.replace(ARCHS["moonshot-v1-16b-a3b"], n_layers=4)
+    params = MDL.init(base, torch.Generator(device=dev).manual_seed(SEED))
+    params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+    steps = {"on": (make_prefill_step(dataclasses.replace(base, **kernel_flags)), params),
+             "off": (make_prefill_step(base), params),
+             "f32": (make_prefill_step(dataclasses.replace(base, dtype="float32")), params32)}
+    for draw in range(8):
+        tokens = torch.from_numpy(rng.integers(0, base.vocab_size, size=(2, 4096))).to(dev)
+        logits = {name: step(p, {"tokens": tokens}).float() for name, (step, p) in steps.items()}
+        rel = {pair: ((logits[pair[0]] - logits[pair[1]]).norm()
+                      / logits[pair[1]].norm()).item()
+               for pair in (("on", "off"), ("on", "f32"), ("off", "f32"))}
+        print(f"routing moonshot draw {draw}: last-position logits rel L2 "
+              + ", ".join(f"{a} vs {b} {v:.4g}" for (a, b), v in rel.items()))
+    del params, params32, steps, logits
+    torch.cuda.empty_cache()
 
     sources = {
         "spmm": ("src/repro_torch/csrc/spmm.cu", "src/repro/kernels/spmm/spmm.py:74"),

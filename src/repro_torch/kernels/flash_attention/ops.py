@@ -4,8 +4,14 @@ Port of ``repro/kernels/flash_attention/ops.py``. CPU tensors run the plain
 version (``ref.attention_ref``), CUDA tensors the kernel
 (``csrc/flash_attention.cu``); nothing sends a CUDA tensor to the plain
 version. The reference's ``block_q``/``block_k`` are TPU tile sizes with no
-meaning for the CUDA kernel (its tiles are fixed at 64 x 64) and are
-dropped from the signature.
+meaning for the CUDA kernel (it picks its own tiles) and are dropped from
+the signature.
+
+The kernel has two paths, chosen by dtype (``PATHS``): bf16 runs both
+products on the tensor cores (``mma.sync``, P as a bf16 hi/lo pair), f32
+keeps the reference's f32 math on the CUDA cores, since bf16 or TF32
+products cannot meet its f32 tolerance. Neither is a fallback for the
+other: each raises on what it does not take.
 """
 from __future__ import annotations
 
@@ -15,8 +21,10 @@ from repro_torch.kernels import _build
 
 from .ref import attention_ref
 
-# head dims the kernel is compiled for (csrc/flash_attention.cu)
-HEAD_DIMS = (32, 64, 128)
+# head dims the kernel is compiled for, on both paths (csrc/flash_attention.cu)
+HEAD_DIMS = tuple(range(16, 129, 16))
+# the kernel's path for each dtype
+PATHS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
@@ -30,7 +38,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     """Launch the CUDA kernel; raises on anything it does not take."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention_cuda needs q, k and v on one CUDA device")
-    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in PATHS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention_cuda needs q, k and v all float32 or all bfloat16")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"need q (B,Sq,Hq,hd) and k/v (B,Skv,Hkv,hd); got "
@@ -52,7 +60,9 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
         )
     _build.check(err, "flash_attention")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.tensor_core_launches += PATHS[q.dtype] == "tensor_core"
     return out
 
 
 flash_attention_cuda.launches = 0  # kernel launches since the last reset
+flash_attention_cuda.tensor_core_launches = 0  # of them, on the bf16 path

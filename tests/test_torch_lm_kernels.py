@@ -60,6 +60,8 @@ def _t(a, dtype=torch.float32) -> torch.Tensor:
         (1, 256, 256, 8, 2, 32, True, 64),    # sliding window
         (2, 96, 160, 4, 4, 64, False, 0),     # cross (non-causal, Sq != Skv)
         (1, 200, 200, 2, 1, 64, True, 0),     # ragged (not a tile multiple)
+        (1, 192, 192, 8, 1, 112, True, 0),    # kimi-k2-like GQA, head dim 112
+        (1, 256, 256, 4, 2, 128, True, 96),   # sliding window, head dim 128
     ],
 )
 def test_flash_attention_matches_pallas_and_ref(b, sq, skv, hq, hkv, hd, causal, window):
@@ -136,10 +138,23 @@ def _load_chip_smoke():
     return module
 
 
-def _causal_attention_f64(q, k, v, drop_tile=None):
+def _round_p(p, how):
+    """P (f64) as the bf16 path of a kernel would feed it to P.V: in f32,
+    then rounded once to bf16 (``"bf16"``) or as the pair hi = bf16(p),
+    lo = bf16(p - hi) (``"hi_lo"``)."""
+    p32 = p.float()
+    hi = p32.to(torch.bfloat16)
+    if how == "bf16":
+        return hi.double()
+    return hi.double() + (p32 - hi.float()).to(torch.bfloat16).double()
+
+
+def _causal_attention_f64(q, k, v, drop_tile=None, p_round=None):
     """Causal attention in f64, head by head, rounded once to q's dtype.
     ``drop_tile`` = (first row, first key, width) hides those keys from the
-    rows from the first row on, as a kernel that skipped a KV tile would."""
+    rows from the first row on, as a kernel that skipped a KV tile would.
+    ``p_round`` ("bf16" or "hi_lo") rounds the unnormalised P = exp(s - max)
+    before P.V as ``_round_p`` says; the row sums stay unrounded."""
     s, hq, hd = q.shape[1:]
     rep = hq // k.shape[2]
     rows, keys = torch.arange(s)[:, None], torch.arange(s)[None, :]
@@ -151,7 +166,9 @@ def _causal_attention_f64(q, k, v, drop_tile=None):
     for h in range(hq):
         scores = q[:, :, h].double() @ k[:, :, h // rep].double().transpose(1, 2) * hd ** -0.5
         scores = scores.masked_fill(~allow, float("-inf"))
-        out[:, :, h] = torch.softmax(scores, dim=-1) @ v[:, :, h // rep].double()
+        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        pv = p if p_round is None else _round_p(p, p_round)
+        out[:, :, h] = (pv @ v[:, :, h // rep].double()) / p.sum(dim=-1, keepdim=True)
     return out.to(q.dtype)
 
 
@@ -172,6 +189,22 @@ def test_long_row_bf16_tolerance_rejects_a_dropped_kv_tile(hq, hkv, hd):
     assert torch.allclose(dropped.float(), want.float(), **smoke.BF16_ATTN_TOL)
     with pytest.raises(RuntimeError, match="disagrees"):
         smoke.check_close("dropped tile", dropped, want, smoke.BF16_LONG_ATTN_TOL)
+
+
+@pytest.mark.parametrize("hq,hkv,hd", [(2, 1, 64), (1, 1, 128)])
+def test_long_row_bf16_tolerance_needs_p_as_a_hi_lo_pair(hq, hkv, hd):
+    """The rounding design of flash_attention's bf16 path, pinned to
+    chip_smoke.py's unchanged S = 4096 tolerance: P rounded once to bf16
+    before P.V fails it; P as a bf16 hi/lo pair (two products) passes."""
+    smoke = _load_chip_smoke()
+    rng = np.random.default_rng(hd)
+    q, k, v = (_t(rng.normal(size=(1, 4096, h, hd)), torch.bfloat16) for h in (hq, hkv, hkv))
+    want = flash_attention(q, k, v)  # the plain version the kernel is held to
+    with pytest.raises(RuntimeError, match="disagrees"):
+        smoke.check_close("P rounded once", _causal_attention_f64(q, k, v, p_round="bf16"),
+                          want, smoke.BF16_LONG_ATTN_TOL)
+    smoke.check_close("P as hi + lo", _causal_attention_f64(q, k, v, p_round="hi_lo"), want,
+                      smoke.BF16_LONG_ATTN_TOL)
 
 
 # --------------------------------------------------------------------------
@@ -207,6 +240,28 @@ def test_moe_gmm_argument_order():
     ref = _np(jax_gmm_ref(*(jnp.asarray(_np(a)) for a in (buf, wi, wg, wo))))
     np.testing.assert_allclose(_np(moe_ffn_gmm(buf, wi, wg, wo)), ref, **F32)
     assert not np.allclose(_np(moe_ffn_gmm(buf, wg, wi, wo)), ref, **F32)
+
+
+def test_moe_gmm_bf16_intermediate_meets_the_bf16_tolerance():
+    """The rounding design of moe_ffn_gmm's bf16 path: the SwiGLU
+    intermediate H rounded once to bf16 between the two passes stays within
+    chip_smoke.py's BF16_TOL of the plain version, at the moonshot expert
+    widths (one expert of capacity 960) and chip_smoke's input scales."""
+    smoke = _load_chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    e, c, d, f = 1, 960, 2048, 1408
+
+    def randn(*shape, scale):
+        return (torch.randn(shape, generator=gen) * scale).to(torch.bfloat16)
+
+    buf = randn(e, c, d, scale=0.5)
+    buf[torch.rand((e, c), generator=gen) > 0.8] = 0  # capacity padding
+    wi, wg = randn(e, d, f, scale=d ** -0.5), randn(e, d, f, scale=d ** -0.5)
+    wo = randn(e, f, d, scale=f ** -0.5)
+    x = buf.float()
+    h = torch.nn.functional.silu(x @ wg.float()) * (x @ wi.float())
+    got = (h.to(torch.bfloat16).float() @ wo.float()).to(torch.bfloat16)
+    smoke.check_close("H rounded once", got, moe_ffn_gmm(buf, wi, wg, wo), smoke.BF16_TOL)
 
 
 def test_moe_gmm_zero_rows_give_zero():
@@ -294,6 +349,18 @@ def test_ssd_scan_matches_recurrence():
 # --------------------------------------------------------------------------
 
 
+def test_kernel_paths_by_dtype():
+    """Each of the two redesigned kernels states its path per dtype: bf16 on
+    the tensor cores, f32 on the CUDA cores; flash_attention takes every
+    multiple of 16 from 16 to 128 as its head dim, on both."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+
+    for ops in (flash_ops, gmm_ops):
+        assert ops.PATHS == {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+    assert flash_ops.HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
+
+
 def test_cuda_entry_points_reject_cpu_tensors():
     q = torch.zeros((1, 8, 2, 32))
     with pytest.raises(ValueError, match="CUDA"):
@@ -305,4 +372,5 @@ def test_cuda_entry_points_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_cuda(x, da, x, x, chunk=4)
     assert flash_attention_cuda.launches == moe_ffn_gmm_cuda.launches == 0
+    assert flash_attention_cuda.tensor_core_launches == moe_ffn_gmm_cuda.tensor_core_launches == 0
     assert ssd_scan_cuda.launches == 0
