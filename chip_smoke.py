@@ -27,7 +27,10 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    B = 2, S = 4096; kimi-k2 B = 1), plus the reference's test shapes
    (ragged, windowed, non-causal, f32 and bf16; the bf16 ones reach the
    tensor-core paths of flash_attention and moe_ffn_gmm, the f32 ones their
-   CUDA-core paths) and every head dim flash_attention takes on both paths,
+   CUDA-core paths; ssd_scan runs on the tensor cores at every dtype, also
+   at a ragged P, N and chunk, an N past 128 and a chunk past 256, and
+   prints its three passes' device times)
+   and every head dim flash_attention takes on both paths,
    with the reference's tolerances except flash_attention at S = 4096 (one
    bf16 ulp per element, relative L2 error 1e-2); each timed beside its
    bound, its plain version and, where one exists, one PyTorch call (SDPA;
@@ -54,14 +57,14 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    moonshot-v1-16b-a3b and jamba-1.5-large-398b. prefill's logits and
    four decode steps within 2e-3 (the reference's kernel integration
    tolerance), greedy tokens identical, and one kernel launch per layer
-   that reaches it.
+   that reaches it, every ssd_scan launch on the tensor cores.
 8. prefill — full width on one card, bf16, B = 2, S = 4096 (cut from
    ``INPUT_SHAPES["prefill_32k"]``: batch 32 -> 2, sequence 32,768 ->
    4,096): llama3.2-1b (16 layers) and mamba2-780m (48 layers) at full
    depth, moonshot-v1-16b-a3b cut to 4 of its 48 layers (1 dense, 3 MoE).
    Each prefill runs with the kernel flags on, its launch counts equal to
-   the layers that reach each kernel, every flash_attention and
-   moe_ffn_gmm launch on the tensor-core path, its last-position logits held
+   the layers that reach each kernel, every flash_attention, moe_ffn_gmm
+   and ssd_scan launch on the tensor-core path, its last-position logits held
    against the flags-off prefill (the model's plain paths on the card);
    the flags-off prefill is timed cold and warm (median of three); then
    peak device memory, one prefill with the flags on and one with them off
@@ -97,6 +100,7 @@ SEED = 0
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # bf16 dense tensor cores, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12        # TF32 dense tensor cores, H100 SXM data sheet
 F32_TOL = dict(rtol=2e-4, atol=2e-5)   # the reference's kernel tolerances
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # (tests/test_kernels.py)
 ATTN_TOL = dict(rtol=2e-4, atol=2e-4)        # flash_attention and moe_gmm, f32
@@ -113,7 +117,9 @@ BF16_ATTN_TOL = dict(rtol=3e-2, atol=3e-2)   # flash_attention and ssd_scan, bf1
 BF16_LONG_ATTN_TOL = dict(rtol=1e-2, atol=1e-3, rel_l2=1e-2)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)         # ssd_scan, f32
 # ssd_scan at the main shape: f32 sums over 256-long chunks and a 16-chunk
-# recurrence, taken in another order than the plain version's einsums
+# recurrence, taken in another order than the plain version's einsums, and
+# products on the tensor cores in a 3xTF32 split (rounded once, x and the
+# scores fail it: tests/test_torch_lm_kernels.py)
 SSD_MAIN_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
@@ -154,17 +160,23 @@ def device_ms(fn, reps: int = 20):
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
-def device_breakdown(label: str, fn, reps: int = 20) -> None:
-    """Print the device time per call of each kernel ``fn`` launches."""
+def device_ms_by_kernel(fn, reps: int = 20) -> list:
+    """(name, device ms per call, launches per call) of each kernel ``fn``
+    launches, from the profiler's trace, largest first."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    for e in sorted(prof.key_averages(), key=lambda e: -device_us(e)):
-        print(f"{label}: {device_us(e) / reps / 1e3:.4f} ms/call x{e.count // reps} "
-              f"{e.key[:90]}")
+    return [(e.key, device_us(e) / reps / 1e3, e.count // reps)
+            for e in sorted(prof.key_averages(), key=lambda e: -device_us(e))]
+
+
+def device_breakdown(label: str, fn, reps: int = 20) -> None:
+    """Print the device time per call of each kernel ``fn`` launches."""
+    for name, ms, count in device_ms_by_kernel(fn, reps):
+        print(f"{label}: {ms:.4f} ms/call x{count} {name[:90]}")
 
 
 def check_close(what: str, got, want, tol: dict) -> float:
@@ -248,6 +260,7 @@ def main() -> int:
     from repro_torch.kernels.moe_gmm.ops import PATHS as GMM_PATHS
     from repro_torch.kernels.moe_gmm.ops import moe_ffn_gmm_cuda
     from repro_torch.kernels.moe_gmm.ref import moe_ffn_gmm_ref
+    from repro_torch.kernels.ssd_scan.ops import PATHS as SSD_PATHS
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.launch.serve import greedy_generate
@@ -300,13 +313,16 @@ def main() -> int:
                 peak=H100_F32_FLOPS, path="cuda_core"):
         """Check the kernel against its plain version, then time all three
         (``library_fn`` None: no single PyTorch call computes it). ``peak``
-        is the card's rate for the inputs' type; ``path`` the kernel's path
-        for them (tensor or CUDA cores)."""
+        is the card's rate for the inputs' type, or ``flops`` a list of
+        (flops, rate) pairs where the work mixes types; ``path`` the
+        kernel's path for them (tensor or CUDA cores)."""
         got, want = kernel_fn(), plain_fn()
         pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
         err = max(check_close(label, g, w, tol) for g, w in pairs)
         del got, want
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
+        work = flops if isinstance(flops, list) else [(flops, peak)]
+        flops = sum(f for f, _ in work)
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, sum(f / r for f, r in work) * 1e3
         r = dict(max_abs_err=err, bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations", path=path)
         # ms: device time from the profiler trace (the CUDA-event time
@@ -320,6 +336,7 @@ def main() -> int:
             dev_t = device_ms(fn)
             r[name + "ms"] = dev_t if dev_t is not None else r[name + "call_ms"]
             r[name + "timing"] = "profiler" if dev_t is not None else "events"
+        r["share"] = r["bound_ms"] / r["ms"]  # how near the kernel comes to its bound
         shown = " ".join(f"{k} {v:.4g}" for k, v in r.items() if isinstance(v, float))
         print(f"kernel {label}: {shown} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
         return r
@@ -572,7 +589,7 @@ def main() -> int:
         gmm_case(f"bf16 {(e, c, d, f)}", e, c, d, f, torch.bfloat16, BF16_TOL)
     torch.cuda.empty_cache()
 
-    def ssd_case(name, b, l, h, p, n, chunk, bc_dtype, tol, shared_bc):
+    def ssd_case(name, b, l, h, p, n, chunk, bc_dtype, tol, shared_bc, passes=False):
         x = randn(b, l, h, p, scale=0.5)
         da = -torch.rand((b, l, h), generator=gen, device=dev) * 0.5
         if shared_bc:
@@ -585,26 +602,56 @@ def main() -> int:
             bm, cm = randn(b, l, h, n, scale=0.5, dtype=bc_dtype), randn(b, l, h, n, scale=0.5,
                                                                         dtype=bc_dtype)
         bc_elems = b * l * n if shared_bc else bm.numel()
-        # the bound counts the lower-triangular work of each chunk: C.B^T and
-        # (scores).x over i >= j, plus the carry-in and state-update products
-        per_chunk = chunk * (chunk + 1) * (n + p) + 4 * chunk * n * p
-        return measure(
+        # the bound counts the lower-triangular work of each chunk, each
+        # product once: C.B^T over i >= j, once per (b, chunk) where the heads
+        # share B/C, at the bf16 tensor-core rate where both are bf16; and
+        # (scores).x, the carry-in and the state update, which have an f32
+        # operand, at the TF32 rate. The kernel's C.B^T for each head and its
+        # 3xTF32 split's extra passes are its own cost, not the function's.
+        nc = l // chunk
+        cb_flops = (b if shared_bc else b * h) * nc * chunk * (chunk + 1) * n
+        tf32_flops = b * h * nc * (chunk * (chunk + 1) * p + 4 * chunk * n * p)
+        cb_rate = H100_BF16_FLOPS if bc_dtype == torch.bfloat16 else H100_TF32_FLOPS
+        r = measure(
             f"ssd_scan[{name}]",
             lambda: ssd_scan_cuda(x, da, bm, cm, chunk),
             lambda: ssd_scan_ref(x, da, bm, cm, chunk), None,
             nbytes=x.numel() * 4 * 2 + da.numel() * 4 + 2 * bc_elems * bm.element_size()
             + b * h * p * n * 4,
-            flops=b * h * (l // chunk) * per_chunk, tol=tol, peak=H100_F32_FLOPS,
+            flops=[(cb_flops, cb_rate), (tf32_flops, H100_TF32_FLOPS)], tol=tol,
+            path=SSD_PATHS[x.dtype],
         )
+        if passes:
+            # one call is three kernels: each one's device time
+            by_kernel = device_ms_by_kernel(lambda: ssd_scan_cuda(x, da, bm, cm, chunk))
+            r["pass_ms"] = {}
+            for kernel in ("chunk_states", "state_passing", "chunk_outputs"):
+                hits = [(ms, count) for key, ms, count in by_kernel if f"{kernel}_kernel" in key]
+                if [count for _, count in hits] != [1]:
+                    raise RuntimeError(f"ssd_scan[{name}]: {kernel} launched {hits} a call")
+                r["pass_ms"][kernel] = hits[0][0]
+            print(f"kernel ssd_scan[{name}] passes, device ms a call: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in r["pass_ms"].items()))
+        return r
 
     results["ssd_scan"] = ssd_case("mamba2-780m (2,4096,48,64) N128 c256, bf16 B/C", 2, 4096,
-                                   48, 64, 128, 256, torch.bfloat16, SSD_MAIN_TOL, True)
+                                   48, 64, 128, 256, torch.bfloat16, SSD_MAIN_TOL, True,
+                                   passes=True)
     for case in ((2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64), (2, 64, 8, 16, 8, 16)):
         ssd_case(f"f32 {case}", *case, torch.float32, SSD_TOL, False)
     ssd_case("bf16 B/C (1,64,2,32,16,32)", 1, 64, 2, 32, 16, 32, torch.bfloat16, BF16_ATTN_TOL,
              False)
     ssd_case("f32 shared B/C, chunk 96 (1,192,3,64,64,96)", 1, 192, 3, 64, 64, 96,
              torch.float32, SSD_TOL, True)
+    # P, N and chunk off the fragment multiples: zero-padded in shared memory
+    ssd_case("f32 ragged (1,120,3,24,12,40)", 1, 120, 3, 24, 12, 40, torch.float32, SSD_TOL,
+             False)
+    # N past one 128-column k-tile of the outputs pass, and a chunk past one
+    # 256-position segment of the chunk-states pass' scan of a
+    ssd_case("f32 N 300 (1,128,2,16,300,64)", 1, 128, 2, 16, 300, 64, torch.float32, SSD_TOL,
+             False)
+    ssd_case("f32 chunk 640 (1,1280,2,16,16,640)", 1, 1280, 2, 16, 16, 640, torch.float32,
+             SSD_TOL, False)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -663,8 +710,10 @@ def main() -> int:
                 "spmm_grad_w": spmm_grad_w_cuda, "flash_attention": flash_attention_cuda,
                 "ssd_scan": ssd_scan_cuda, "moe_ffn_gmm": moe_ffn_gmm_cuda}
 
-    # the kernels with a tensor-core path count its launches apart
-    tensor_core = ("flash_attention", "moe_ffn_gmm")
+    # the kernels with a tensor-core path count its launches apart (ssd_scan
+    # has that path alone, so its check stands guard over a second path
+    # coming back, as flash and gmm have one)
+    tensor_core = ("flash_attention", "moe_ffn_gmm", "ssd_scan")
 
     def reset_counts():
         for fn in counters.values():
@@ -816,6 +865,7 @@ def main() -> int:
         card = MDL.prefill(cfg, p_card, {"tokens": tokens.to(dev)})
         torch.cuda.synchronize()
         counts, want = lm_counts(), layer_launches(cfg)
+        ssd_tc = counters["ssd_scan"].tensor_core_launches
         cpu = MDL.prefill(cfg, p_cpu, {"tokens": tokens})
         prefill_err = (card.cpu() - cpu).abs().max().item()
         # decode: four steps from the same prompt token, card against CPU
@@ -831,11 +881,14 @@ def main() -> int:
         same = torch.equal(toks_card.cpu(), toks_cpu)
         print(f"serve {cfg.name} card vs cpu: prefill logits max abs err {prefill_err:.3g}, "
               f"decode {decode_err:.3g} (tol 2e-3); greedy tokens identical {same}; "
-              f"launches {counts} (expected {want})")
+              f"launches {counts} (expected {want}), ssd_scan on the tensor cores {ssd_tc}")
         if not (torch.allclose(card.cpu(), cpu, rtol=2e-3, atol=2e-3) and decode_err <= 2e-3):
             raise RuntimeError(f"serve {cfg.name}: card and CPU disagree beyond 2e-3")
         if not same or counts != want:
             raise RuntimeError(f"serve {cfg.name}: greedy tokens differ or launch counts wrong")
+        if ssd_tc != counts["ssd_scan"]:
+            raise RuntimeError(f"serve {cfg.name}: {counts['ssd_scan']} ssd_scan launches, "
+                               f"{ssd_tc} on the tensor cores")
 
     # ---- 8. full-width prefill and greedy decoding, one card ---------------
     full_models = (("llama3.2-1b", 16), ("mamba2-780m", 48), ("moonshot-v1-16b-a3b", 4))
@@ -910,7 +963,7 @@ def main() -> int:
         if counts != want:
             raise RuntimeError(f"prefill {arch}: launch counts {counts} != expected {want}")
         if any(tc_counts[name] != counts[name] for name in tensor_core):
-            raise RuntimeError(f"prefill {arch}: bf16 launches {counts} not all on the tensor-core "
+            raise RuntimeError(f"prefill {arch}: launches {counts} not all on the tensor-core "
                                f"path {tc_counts}")
         if not (torch.isfinite(on).all() and rel <= 5e-2):
             raise RuntimeError(f"prefill {arch}: kernel and plain prefill disagree")

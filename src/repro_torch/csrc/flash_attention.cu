@@ -278,24 +278,12 @@ constexpr int THREADS = WARPS * 32;
 template <int HD>
 __host__ __device__ constexpr int row_stride() { return HD + 8; }  // elements: 16 bytes of padding
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared, or 16 zero bytes where `ok` is false
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
                "r"(ok ? 16 : 0)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -305,27 +293,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-// d (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special-function unit (subnormal results flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
 }
 
 // Rows row0 .. row0 + ROWS - 1 of a (rows, HD) matrix whose rows are
@@ -445,8 +412,8 @@ __global__ void __launch_bounds__(THREADS)
         ldsm_x4(kb, kt + (key * LDS + dim) * 2);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma(s[mt][2 * np], qf[mt][kc], kb[0], kb[1]);
-          mma(s[mt][2 * np + 1], qf[mt][kc], kb[2], kb[3]);
+          mma_bf16(s[mt][2 * np], qf[mt][kc], kb[0], kb[1]);
+          mma_bf16(s[mt][2 * np + 1], qf[mt][kc], kb[2], kb[3]);
         }
       }
     }
@@ -515,8 +482,9 @@ __global__ void __launch_bounds__(THREADS)
           const float p0 = s[mt][2 * kc + i / 2][2 * (i % 2)];
           const float p1 = s[mt][2 * kc + i / 2][2 * (i % 2) + 1];
           const __nv_bfloat162 ph = __floats2bfloat162_rn(p0, p1);
-          hi[mt][i] = pack(ph);
-          lo[mt][i] = pack(__floats2bfloat162_rn(p0 - __low2float(ph), p1 - __high2float(ph)));
+          hi[mt][i] = pack_bf16x2(ph);
+          lo[mt][i] =
+              pack_bf16x2(__floats2bfloat162_rn(p0 - __low2float(ph), p1 - __high2float(ph)));
         }
 #pragma unroll
       for (int np = 0; np < HD / 16; ++np) {
@@ -527,10 +495,10 @@ __global__ void __launch_bounds__(THREADS)
         ldsm_x4_t(vb, vt + (key * LDS + dim) * 2);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma(acc[mt][2 * np], hi[mt], vb[0], vb[1]);
-          mma(acc[mt][2 * np], lo[mt], vb[0], vb[1]);
-          mma(acc[mt][2 * np + 1], hi[mt], vb[2], vb[3]);
-          mma(acc[mt][2 * np + 1], lo[mt], vb[2], vb[3]);
+          mma_bf16(acc[mt][2 * np], hi[mt], vb[0], vb[1]);
+          mma_bf16(acc[mt][2 * np], lo[mt], vb[0], vb[1]);
+          mma_bf16(acc[mt][2 * np + 1], hi[mt], vb[2], vb[3]);
+          mma_bf16(acc[mt][2 * np + 1], lo[mt], vb[2], vb[3]);
         }
       }
     }

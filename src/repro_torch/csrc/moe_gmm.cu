@@ -184,10 +184,6 @@ constexpr size_t smem_bytes() {
   return size_t(stages<NB>()) * stage_bytes<NB>() + 2 * stages<NB>() * sizeof(uint64_t) + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }

@@ -289,7 +289,15 @@ def _ssd_inputs(rng, b, l, h, p, n):
 
 
 @pytest.mark.parametrize(
-    "b,l,h,p,n,c", [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64), (2, 64, 8, 16, 8, 16)]
+    "b,l,h,p,n,c",
+    [
+        (2, 128, 4, 32, 16, 32),
+        (1, 256, 2, 64, 64, 64),
+        (2, 64, 8, 16, 8, 16),
+        (1, 120, 3, 24, 12, 40),  # ragged: P, N and chunk off the fragment multiples
+        (1, 128, 2, 16, 300, 64),  # N past the kernel's 128-column k-tile
+        (1, 1280, 2, 16, 16, 640),  # a chunk past the kernel's 256-position scan segment
+    ],
 )
 def test_ssd_scan_matches_pallas_and_ref(b, l, h, p, n, c):
     arrays = _ssd_inputs(np.random.default_rng(l + p), b, l, h, p, n)
@@ -344,20 +352,118 @@ def test_ssd_scan_matches_recurrence():
                                    rtol=1e-3, atol=1e-3)
 
 
+def _tf32(t):
+    """``t`` (f32) rounded to TF32: to nearest even on the low 13 mantissa bits."""
+    u = t.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(torch.float32)
+
+
+def _product(eq, a, b, how, a_exact=False, b_exact=False):
+    """einsum ``eq`` of f32 ``a`` and ``b`` as the tensor cores take it, summed
+    in f64: "split" is the 3xTF32 split (a_hi b_hi + a_hi b_lo + a_lo b_hi; an
+    exact operand, a bf16 value, has no lo part), "once" one TF32 rounding of
+    each operand."""
+    if how == "once":
+        return torch.einsum(eq, _tf32(a).double(), _tf32(b).double())
+    parts = []
+    for t, exact in ((a, a_exact), (b, b_exact)):
+        hi = t.double() if exact else _tf32(t).double()
+        parts.append((hi, None if exact else _tf32(t.float() - hi.float()).double()))
+    (ah, al), (bh, bl) = parts
+    out = torch.einsum(eq, ah, bh)
+    if bl is not None:
+        out = out + torch.einsum(eq, ah, bl)
+    if al is not None:
+        out = out + torch.einsum(eq, al, bh)
+    return out
+
+
+def _bf16x3(t):
+    """``t`` (f32) as the sum of three bf16 pieces, each the rounding of what
+    the ones before leave (how the scan hands the states to its last pass)."""
+    s1 = t.to(torch.bfloat16)
+    r = t - s1.float()
+    s2 = r.to(torch.bfloat16)
+    s3 = (r - s2.float()).to(torch.bfloat16)
+    return s1.double() + s2.double() + s3.double()
+
+
+def _ssd_chunked_as_kernel(x, dA, Bm, Cm, chunk, scores_x="split"):
+    """A copy of ``models/mamba2.py::ssd_chunked`` whose products round their
+    operands as csrc/ssd_scan.cu does: C B^T of bf16 B/C exact (f32 B/C in
+    the split), scores . x and the chunk states (x w)^T B in the 3xTF32 split
+    (``scores_x="once"``: x and the scores rounded once to TF32 instead), and
+    the carry-in with the states (and an f32 C) as three bf16 pieces. Each
+    product is summed in f64; the rest of the arithmetic, the decay's exp
+    included, is the plain version's f32."""
+    exact = Bm.dtype == torch.bfloat16
+    b, l, h, p = x.shape
+    n = Bm.shape[-1]
+    nc = l // chunk
+    xr = x.reshape(b, nc, chunk, h, p).float()
+    br = Bm.reshape(b, nc, chunk, h, n).float()
+    cr = Cm.reshape(b, nc, chunk, h, n).float()
+    a = dA.reshape(b, nc, chunk, h).permute(0, 3, 1, 2).float()
+    a_cs = a.cumsum(dim=-1)
+    decay = torch.exp(TM._segsum(a))
+    cb = _product("bclhn,bcshn->bhcls", cr, br, "split", exact, exact).float()
+    scores = cb * decay
+    y_diag = _product("bhcls,bcshp->bclhp", scores, xr, scores_x)
+    xw = xr * torch.exp(a_cs[..., -1:] - a_cs).permute(0, 2, 3, 1)[..., None]
+    states = _product("bclhn,bclhp->bchpn", br, xw, "split", exact).float()
+    chunk_decay = torch.exp(a_cs[..., -1])
+    state = torch.zeros((b, h, p, n))
+    prev = []
+    for ci in range(nc):
+        prev.append(_bf16x3(state))
+        state = state * chunk_decay[:, :, ci, None, None] + states[:, ci]
+    y_off = torch.einsum("bclhn,bchpn->bclhp", cr.double() if exact else _bf16x3(cr),
+                         torch.stack(prev, dim=1))
+    y_off = y_off * torch.exp(a_cs).permute(0, 2, 3, 1)[..., None].double()
+    return (y_diag + y_off).reshape(b, l, h, p), state
+
+
+@pytest.mark.parametrize("case", ["mamba2-780m-like, bf16 B/C", "f32"])
+def test_ssd_scan_needs_x_and_scores_as_tf32_pairs(case):
+    """The rounding design of csrc/ssd_scan.cu, pinned to chip_smoke.py's
+    unchanged tolerances: its products, emulated on the CPU, meet
+    SSD_MAIN_TOL at the main shape's chunk, N and P with bf16 B/C, and
+    SSD_TOL at an f32 case of phase 3; with x and the scores rounded once to
+    TF32 instead of split in two, scores . x fails both."""
+    smoke = _load_chip_smoke()
+    if case == "f32":
+        shape, bc_dtype, tol = (1, 256, 2, 64, 64, 64), torch.float32, smoke.SSD_TOL
+    else:
+        shape, bc_dtype, tol = (1, 1024, 4, 64, 128, 256), torch.bfloat16, smoke.SSD_MAIN_TOL
+    x, dA, bm, cm = _ssd_inputs(np.random.default_rng(15), *shape[:5])
+    x, dA, bm, cm = _t(x), _t(dA), _t(bm, bc_dtype), _t(cm, bc_dtype)
+    want_y, want_fin = ssd_scan(x, dA, bm, cm, chunk=shape[5])  # the plain version
+    y, fin = _ssd_chunked_as_kernel(x, dA, bm, cm, shape[5])
+    smoke.check_close("3xTF32 y", y, want_y, tol)
+    smoke.check_close("3xTF32 final state", fin, want_fin, tol)
+    once, _ = _ssd_chunked_as_kernel(x, dA, bm, cm, shape[5], scores_x="once")
+    with pytest.raises(RuntimeError, match="disagrees"):
+        smoke.check_close("x and scores rounded once", once, want_y, tol)
+
+
 # --------------------------------------------------------------------------
 # the CUDA entry points never take CPU tensors
 # --------------------------------------------------------------------------
 
 
 def test_kernel_paths_by_dtype():
-    """Each of the two redesigned kernels states its path per dtype: bf16 on
-    the tensor cores, f32 on the CUDA cores; flash_attention takes every
-    multiple of 16 from 16 to 128 as its head dim, on both."""
+    """Each redesigned kernel states its path per dtype: flash_attention and
+    moe_ffn_gmm bf16 on the tensor cores, f32 on the CUDA cores; ssd_scan
+    both on the tensor cores; flash_attention takes every multiple of 16
+    from 16 to 128 as its head dim, on both."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     for ops in (flash_ops, gmm_ops):
         assert ops.PATHS == {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+    assert ssd_ops.PATHS == {torch.bfloat16: "tensor_core", torch.float32: "tensor_core"}
     assert flash_ops.HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
 
 
@@ -373,4 +479,4 @@ def test_cuda_entry_points_reject_cpu_tensors():
         ssd_scan_cuda(x, da, x, x, chunk=4)
     assert flash_attention_cuda.launches == moe_ffn_gmm_cuda.launches == 0
     assert flash_attention_cuda.tensor_core_launches == moe_ffn_gmm_cuda.tensor_core_launches == 0
-    assert ssd_scan_cuda.launches == 0
+    assert ssd_scan_cuda.launches == ssd_scan_cuda.tensor_core_launches == 0
