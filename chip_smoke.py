@@ -17,11 +17,20 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    the reference's kernel tolerances; times kernel, plain version and one
    PyTorch library call: device time from the profiler's trace, and
    CUDA events around each call (median of 20 after warm-up), which also
-   count the host's cost of issuing it. spmm_grad_w must also be
-   deterministic (two launches bitwise equal), also on 48 small edge cases
-   of its chunking held against an f64 scatter, and spmm's autograd
-   Function (dW and d feat_val) must agree with autograd through the plain
-   forward. The LM serving kernels likewise: flash_attention at the
+   count the host's cost of issuing it. spmm and spmm_grad_w must also be
+   deterministic (two launches bitwise equal), spmm_grad_w also on 48 small
+   edge cases of its chunking held against an f64 scatter; spmm_grad_w's
+   output lands in memory that held NaN (at the main shape and in the
+   one-row edge cases), and every row no slot names must come out exactly
+   0; a NaN in a W row that only padding names reaches spmm's output, and a
+   NaN in dh of a padded sample spmm_grad_w's row 0, where the plain
+   versions put it, and an infinite val in a masked slot changes nothing
+   (its scale is exactly 0, as the reference's select gives it); the
+   counting sort that spmm_grad_w walks must give
+   exactly the order of torch's stable sort (timed beside it); spmm and
+   spmm_grad_w print each of their kernels' device time; and spmm's
+   autograd Function (dW and d feat_val) must agree with autograd through
+   the plain forward. The LM serving kernels likewise: flash_attention at the
    llama3.2-1b, moonshot-v1-16b-a3b and kimi-k2 (hd 112) prefill shapes,
    ssd_scan at the mamba2-780m one, moe_ffn_gmm at the moonshot one (bf16,
    B = 2, S = 4096; kimi-k2 B = 1), plus the reference's test shapes
@@ -81,9 +90,11 @@ Then one JSON line with every kernel's numbers, and as the last line
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -173,10 +184,16 @@ def device_ms_by_kernel(fn, reps: int = 20) -> list:
             for e in sorted(prof.key_averages(), key=lambda e: -device_us(e))]
 
 
-def device_breakdown(label: str, fn, reps: int = 20) -> None:
-    """Print the device time per call of each kernel ``fn`` launches."""
-    for name, ms, count in device_ms_by_kernel(fn, reps):
-        print(f"{label}: {ms:.4f} ms/call x{count} {name[:90]}")
+def device_breakdown(label: str, fn, reps: int = 20) -> dict:
+    """Print and return the device ms a call of each kernel ``fn`` launches,
+    by kernel name (no namespaces, template arguments or parameters)."""
+    rows = [(name, ms, count) for name, ms, count in device_ms_by_kernel(fn, reps)
+            if count and ms > 0]
+    for name, ms, count in rows:
+        print(f"{label} by kernel: {ms:.4f} ms/call x{count} {name[:90]}")
+    short = (re.match(r"(?:void )?([\w:]+)", n.replace("(anonymous namespace)::", ""))
+             for n, _, _ in rows)
+    return {m.group(1).split("::")[-1]: ms for m, (_, ms, _) in zip(short, rows)}
 
 
 def check_close(what: str, got, want, tol: dict) -> float:
@@ -250,8 +267,8 @@ def main() -> int:
     from repro_torch.data.sparse import SparseDataset, train_test_split
     from repro_torch.data.xml_synth import AMAZON_670K, make_xml_dataset
     from repro_torch.kernels import _build
-    from repro_torch.kernels.spmm.ops import spmm, spmm_cuda, spmm_grad_w_cuda
-    from repro_torch.kernels.spmm.ref import spmm_grad_w_ref, spmm_ref
+    from repro_torch.kernels.spmm.ops import spmm, spmm_cuda, spmm_grad_w_cuda, sort_rows_cuda
+    from repro_torch.kernels.spmm.ref import sort_rows_ref, spmm_grad_w_ref, spmm_ref
     from repro_torch.kernels.weighted_merge.ops import merge_cuda
     from repro_torch.kernels.weighted_merge.ref import weighted_merge_ref
     from repro_torch.kernels.flash_attention.ops import PATHS as FLASH_PATHS
@@ -341,7 +358,11 @@ def main() -> int:
         print(f"kernel {label}: {shown} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
         return r
 
-    def spmm_case(name, idx, val, mask, w, tol):
+    def spmm_case(name, idx, val, mask, w, tol, breakdown=False):
+        a, b = spmm_cuda(idx, val, mask, w), spmm_cuda(idx, val, mask, w)
+        if not torch.equal(a, b):
+            raise RuntimeError(f"spmm[{name}]: two launches differ")
+        del a, b
         elt, h = w.element_size(), w.shape[-1]
         n_slots, n_rows = idx.numel(), idx.numel() // idx.shape[-1]
         # yardstick: one embedding_bag over the replicas' rows, flattened
@@ -355,20 +376,24 @@ def main() -> int:
         n_live = int(live.sum())
         w_rows = torch.unique(flat_idx[live]).numel()
         print(f"spmm[{name}] needs: {n_live} of {n_slots} slots unmasked, "
-              f"{w_rows} distinct W rows")
+              f"{w_rows} distinct W rows; two launches bitwise equal")
         psw = (val * mask).to(w.dtype).reshape(-1, idx.shape[-1])
         wf = w.reshape(-1, h)
-        return measure(
-            f"spmm[{name}]",
-            lambda: spmm_cuda(idx, val, mask, w),
+        kernel = lambda: spmm_cuda(idx, val, mask, w)  # noqa: E731
+        split = device_breakdown(f"spmm[{name}]", kernel) if breakdown else None
+        r = measure(
+            f"spmm[{name}]", kernel,
             lambda: spmm_ref(idx, val, mask, w),
             lambda: torch.nn.functional.embedding_bag(
                 flat_idx, wf, per_sample_weights=psw, mode="sum"),
             nbytes=w_rows * h * elt + n_slots * (4 + 4 + 1) + n_rows * h * elt,
             flops=2 * n_live * h, tol=tol,
         )
+        if split is not None:
+            r["by_kernel_ms"] = split
+        return r
 
-    results["spmm"] = spmm_case("f32 R=4", idx, val, mask, w32, F32_TOL)
+    results["spmm"] = spmm_case("f32 R=4", idx, val, mask, w32, F32_TOL, breakdown=True)
     spmm_case("bf16 R=4", idx, val, mask, w32.to(torch.bfloat16), BF16_TOL)
     spmm_case("f32 2-D eval", idx[0], val[0], mask[0], w32[0].contiguous(), F32_TOL)
     odd = (idx[:, :8, :37].contiguous() % 5000, val[:, :8, :37].contiguous(),
@@ -377,13 +402,89 @@ def main() -> int:
     spmm_case("f32 H=100 K=37", *odd, w_odd, F32_TOL)
     spmm_case("bf16 H=100 K=37", *odd, w_odd.to(torch.bfloat16), BF16_TOL)
 
+    def same_nan(what, got, want):
+        """NaN exactly where the plain version has it, the rest within F32_TOL."""
+        nan = want.isnan()
+        if not (nan.any() and torch.equal(got.isnan(), nan)):
+            raise RuntimeError(f"{what}: NaN at {int(got.isnan().sum())} places, the plain "
+                               f"version at {int(nan.sum())}")
+        check_close(what, got[~nan], want[~nan], F32_TOL)
+        print(f"{what}: NaN at the same {int(nan.sum())} places as the plain version")
+
+    # masked slots are multiplied in (scale 0): a NaN in W[r, 0], which only
+    # the padding names here, reaches every output row with a padded slot,
+    # though the kernel gathers a padding run's row once
+    idx_pad = torch.where(mask, torch.where(idx == 0, 1, idx), 0).int()
+    w_nan = w32.clone()
+    w_nan[:, 0, 7] = float("nan")
+    same_nan("spmm NaN in a W row only padding names", spmm_cuda(idx_pad, val, mask, w_nan),
+             spmm_ref(idx_pad, val, mask, w_nan))
+    del w_nan
+
+    # the counting sort spmm_grad_w walks: exactly torch's stable sort
+    def sort_case(name, keys, n_rows, timed=False):
+        rows, order = sort_rows_cuda(keys, n_rows)
+        want_rows, want_order = torch.sort(keys, dim=-1, stable=True)
+        if not (torch.equal(rows, want_rows) and torch.equal(order.long(), want_order)):
+            raise RuntimeError(f"sort_rows[{name}]: not the order of a stable sort")
+        if not timed:
+            return None
+        plain_rows, plain_order = sort_rows_ref(keys, n_rows)
+        if not (torch.equal(plain_rows, rows) and torch.equal(plain_order, order)):
+            raise RuntimeError(f"sort_rows[{name}]: the plain emulation differs")
+        times = {"ms": device_ms(lambda: sort_rows_cuda(keys, n_rows)),
+                 "plain_ms": device_ms(lambda: sort_rows_ref(keys, n_rows)),
+                 "library_ms": device_ms(lambda: torch.sort(keys, dim=-1, stable=True))}
+        print(f"sort_rows[{name}]: equal to torch.sort(stable=True) and to its plain "
+              "emulation; device ms a call " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+        return times
+
+    R_S = (R, idx[0].numel())
+    sort_times = sort_case(f"{R_S} NF", idx.reshape(R_S), NF, timed=True)
+    for n_rows, shape in ((1, (1, 1)), (300, (2, 5000)), (NF, (3, 4100)), (300_000, (2, 3001))):
+        sort_case(f"{shape} n_rows {n_rows}",
+                  torch.randint(0, n_rows, shape, generator=gen, device=dev, dtype=torch.int32),
+                  n_rows)
+    sort_case("all on row NF - 1", torch.full(R_S, NF - 1, device=dev, dtype=torch.int32), NF)
+    sort_case("all on row 0", torch.zeros(R_S, device=dev, dtype=torch.int32), NF)
+    print("sort_rows: the order of torch's stable sort at every shape")
+
+    def into_nan(call):
+        """``call()`` with its output landing in memory that held NaN: each
+        try fills the last output with NaN and frees it, and the caching
+        allocator hands the block back to the next call's output."""
+        out = call()
+        for _ in range(5):
+            ptr = out.data_ptr()
+            out.fill_(float("nan"))
+            del out
+            out = call()
+            if out.data_ptr() == ptr:
+                return out
+        raise RuntimeError("the allocator did not hand the NaN-filled block back")
+
+    def unnamed_rows_zero(what, got, idx, n_rows):
+        """Every row that no slot of its replica names is exactly 0."""
+        n_rep = got.numel() // (n_rows * got.shape[-1])
+        named = torch.zeros((n_rep, n_rows), dtype=torch.bool, device=dev)
+        named.scatter_(1, idx.reshape(n_rep, -1).long(), True)
+        if not (got.reshape(n_rep, n_rows, -1)[~named] == 0).all():
+            raise RuntimeError(f"{what}: a row no slot names is not 0 in a NaN-filled output")
+        return int((~named).sum())
+
     def grad_w_case(name, idx, val, mask, dh, n_rows):
-        """spmm_grad_w: kernel against plain, bitwise-repeatable, timed."""
+        """spmm_grad_w: kernel against plain, bitwise-repeatable, every row
+        written into an output that held NaN, timed."""
         a = spmm_grad_w_cuda(idx, val, mask, dh, n_rows)
         b = spmm_grad_w_cuda(idx, val, mask, dh, n_rows)
         if not torch.equal(a, b):
             raise RuntimeError(f"spmm_grad_w[{name}]: two launches differ")
         del a, b
+        got = into_nan(lambda: spmm_grad_w_cuda(idx, val, mask, dh, n_rows))
+        n_zero = unnamed_rows_zero(f"spmm_grad_w[{name}]", got, idx, n_rows)
+        check_close(f"spmm_grad_w[{name}] into NaN", got,
+                    spmm_grad_w_ref(idx, val, mask, dh, n_rows), F32_TOL)
+        del got
         h, lead = dh.shape[-1], idx.shape[:-2]
         n_rep = idx.numel() // (idx.shape[-1] * idx.shape[-2])
         # yardstick: one index_add_ of the per-slot products into a zeroed
@@ -394,10 +495,11 @@ def main() -> int:
         # a multiply-add per unmasked slot and column
         n_live = int(mask.sum())
         print(f"spmm_grad_w[{name}] needs: {n_live} of {idx.numel()} slots unmasked, "
-              f"largest run {int(torch.bincount(flat).max())} slots")
-        device_breakdown(f"spmm_grad_w[{name}] by kernel",
-                         lambda: spmm_grad_w_cuda(idx, val, mask, dh, n_rows))
-        return measure(
+              f"largest run {int(torch.bincount(flat).max())} slots; two launches bitwise "
+              f"equal; into a NaN-filled output, its {n_zero} unnamed rows exactly 0")
+        split = device_breakdown(f"spmm_grad_w[{name}]",
+                                 lambda: spmm_grad_w_cuda(idx, val, mask, dh, n_rows))
+        r = measure(
             f"spmm_grad_w[{name}]",
             lambda: spmm_grad_w_cuda(idx, val, mask, dh, n_rows),
             lambda: spmm_grad_w_ref(idx, val, mask, dh, n_rows),
@@ -406,6 +508,8 @@ def main() -> int:
             + math.prod(lead) * idx.shape[-2] * h * 4,
             flops=2 * n_live * h, tol=F32_TOL,
         )
+        r["by_kernel_ms"] = split
+        return r
 
     def scatter_operands(idx, val, mask, dh, n_rows, dtype):
         """spmm_grad_w as one scatter: (…*B*K,) flat output rows and the
@@ -420,6 +524,7 @@ def main() -> int:
     # chunk, runs crossing many chunks, one row for every slot, ragged H.
     # Long f32 sums differ by reassociation, so each result is held against
     # an f64 scatter: within 2e-5, or within twice the plain version's error.
+    # The one-row cases also write into an output that held NaN.
     n_edge = 0
     for lead in ((), (3,)):
         for b, k in ((1, 1), (1, 128), (3, 257), (64, 100)):
@@ -431,8 +536,9 @@ def main() -> int:
                     e_idx = torch.full_like(e_idx, 7) if one_row else torch.where(e_mask, e_idx, 0)
                     e_val = torch.randn(lead + (b, k), generator=gen, device=dev)
                     e_dh = torch.randn(lead + (b, h), generator=gen, device=dev)
-                    got = spmm_grad_w_cuda(e_idx, e_val, e_mask, e_dh, 300)
-                    again = spmm_grad_w_cuda(e_idx, e_val, e_mask, e_dh, 300)
+                    call = functools.partial(spmm_grad_w_cuda, e_idx, e_val, e_mask, e_dh, 300)
+                    got = into_nan(call) if one_row else call()
+                    again = call()
                     plain = spmm_grad_w_ref(e_idx, e_val, e_mask, e_dh, 300)
                     flat, prods = scatter_operands(e_idx, e_val, e_mask, e_dh, 300,
                                                    torch.float64)
@@ -444,13 +550,40 @@ def main() -> int:
                         raise RuntimeError(f"spmm_grad_w edge case {lead + (b, k, h)} one_row="
                                            f"{one_row}: error {err_k:.3g} against f64 (plain "
                                            f"{err_p:.3g}), repeatable {torch.equal(got, again)}")
+                    if one_row:
+                        unnamed_rows_zero(f"spmm_grad_w edge case {lead + (b, k, h)}", got,
+                                          e_idx, 300)
                     n_edge += 1
-    print(f"spmm_grad_w: {n_edge} edge cases repeatable and as close to f64 as the plain version")
+    print(f"spmm_grad_w: {n_edge} edge cases repeatable and as close to f64 as the plain "
+          "version; the one-row ones 0 in every other row of a NaN-filled output")
 
     dh = torch.randn((R, B_MAX, H), generator=gen, device=dev)
     results["spmm_grad_w"] = grad_w_case("f32 R=4", idx, val, mask, dh, NF)
+    results["spmm_grad_w"]["sort"] = sort_times
     grad_w_case("f32 2-D", idx[0], val[0], mask[0], dh[0].contiguous(), NF)
     grad_w_case("f32 H=100 K=37", *odd, dh[:, :8, :100].contiguous(), 5000)
+    # a NaN in dh[b] of a sample with padded (masked) slots reaches the row
+    # they name, 0, as in the plain version
+    dh_nan = dh.clone()
+    padded = int((~mask[1]).any(-1).nonzero()[0])
+    dh_nan[1, padded, 3] = float("nan")
+    same_nan("spmm_grad_w NaN in dh of a padded sample",
+             spmm_grad_w_cuda(idx, val, mask, dh_nan, NF),
+             spmm_grad_w_ref(idx, val, mask, dh_nan, NF))
+    del dh_nan
+    # a masked slot's scale is exactly 0 whatever its val holds (the
+    # reference's val * mask is a select): an infinite val in every padded
+    # slot changes neither kernel's output
+    val_inf = torch.where(mask, val, float("inf"))
+    err_f = check_close("spmm with inf in masked vals", spmm_cuda(idx, val_inf, mask, w32),
+                        spmm_ref(idx, val, mask, w32), F32_TOL)
+    err_b = check_close("spmm_grad_w with inf in masked vals",
+                        spmm_grad_w_cuda(idx, val_inf, mask, dh, NF),
+                        spmm_grad_w_ref(idx, val, mask, dh, NF), F32_TOL)
+    print(f"spmm, spmm_grad_w with inf in every masked val: as with finite vals (max abs err "
+          f"{err_f:.3g}, {err_b:.3g})")
+    del val_inf
+    torch.cuda.empty_cache()
 
     # spmm's autograd Function: dW (the kernel) and d feat_val against
     # autograd through the plain forward, at the main path's shapes
@@ -707,7 +840,8 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = {"spmm": spmm_cuda, "weighted_merge": merge_cuda,
-                "spmm_grad_w": spmm_grad_w_cuda, "flash_attention": flash_attention_cuda,
+                "spmm_grad_w": spmm_grad_w_cuda, "sort_rows": sort_rows_cuda,
+                "flash_attention": flash_attention_cuda,
                 "ssd_scan": ssd_scan_cuda, "moe_ffn_gmm": moe_ffn_gmm_cuda}
 
     # the kernels with a tensor-core path count its launches apart (ssd_scan
@@ -738,7 +872,7 @@ def main() -> int:
     print(f"main peak device memory: {peak_gb:.2f} GB")
     n_rounds = sum(r["n_rounds"] for r in mlog.records)
     want = {"spmm": n_rounds + len(mlog.records) * len(test_batches),
-            "weighted_merge": 4 * len(mlog.records), "spmm_grad_w": 0,
+            "weighted_merge": 4 * len(mlog.records), "spmm_grad_w": 0, "sort_rows": 0,
             "flash_attention": 0, "ssd_scan": 0, "moe_ffn_gmm": 0}
     print(f"main launches: {launches} (expected {want})")
     if launches != want:
@@ -819,9 +953,10 @@ def main() -> int:
           f"rounds; peak device memory {dense_peak_gb:.2f} GB")
     if dense_err > 1e-4:
         raise RuntimeError("paths: dense and sparse losses disagree beyond tolerance")
-    if dense_launches["spmm_grad_w"] != dense_rounds:
-        raise RuntimeError(f"paths: {dense_launches['spmm_grad_w']} spmm_grad_w launches "
-                           f"for {dense_rounds} dense rounds")
+    if not dense_launches["spmm_grad_w"] == dense_launches["sort_rows"] == dense_rounds:
+        raise RuntimeError(f"paths: {dense_launches['spmm_grad_w']} spmm_grad_w and "
+                           f"{dense_launches['sort_rows']} sort_rows launches for "
+                           f"{dense_rounds} dense rounds")
     if not all(torch.isfinite(v).all().item() for v in dense_state.global_model.values()):
         raise RuntimeError("paths: the dense run's global model is not finite")
     profile_megabatch(" dense", dense_trainer, dense_state)
@@ -1027,6 +1162,7 @@ def main() -> int:
     # spmm_grad_w on the dense-gradient path (phase 6), the LM kernels on
     # the first flags-on prefill of each full-width model (phase 8)
     launches["spmm_grad_w"] = dense_launches["spmm_grad_w"]
+    results["spmm_grad_w"]["sort"]["launches"] = dense_launches["sort_rows"]
     launches.update(lm_launches)
     kernels = []
     for name, r in results.items():

@@ -29,6 +29,52 @@ __device__ __forceinline__ void store_pack(T* p, const Pack<T, N>& x) {
   *reinterpret_cast<Pack<T, N>*>(p) = x;
 }
 
+// load_pack on the read-only data path (ld.global.nc): for inputs that no
+// thread of the launch writes
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> ldg_pack(const T* p) {
+  constexpr int kBytes = sizeof(T) * N;
+  static_assert(kBytes == 16 || kBytes == 8 || kBytes == 4 || kBytes == 2, "pack size");
+  Pack<T, N> x;
+  if constexpr (kBytes == 16) {
+    *reinterpret_cast<uint4*>(&x) = __ldg(reinterpret_cast<const uint4*>(p));
+  } else if constexpr (kBytes == 8) {
+    *reinterpret_cast<uint2*>(&x) = __ldg(reinterpret_cast<const uint2*>(p));
+  } else if constexpr (kBytes == 4) {
+    *reinterpret_cast<unsigned*>(&x) = __ldg(reinterpret_cast<const unsigned*>(p));
+  } else {
+    *reinterpret_cast<unsigned short*>(&x) = __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  return x;
+}
+
+// exclusive prefix sum of one int a thread over the block, in thread order;
+// `total` gets the block's sum. Every thread of the block must call it;
+// `scratch` holds one int a warp. Ends with a barrier, so `scratch` may be
+// reused after it.
+__device__ __forceinline__ int block_exclusive_scan(int x, int* scratch, int& total) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n_warps = (blockDim.x * blockDim.y + 31) / 32;
+  int incl = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+  for (int w = 0; w < n_warps; ++w) {
+    const int c = scratch[w];
+    if (w < warp) before += c;
+    total += c;
+  }
+  __syncthreads();
+  return before + incl - x;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 

@@ -38,8 +38,12 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {
     # idx, val, mask, w, out, R, B, K, NF, H, dtype, stream
     "spmm_forward": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P],
-    # rows, samp, scale, dh, out, head, tail, R, S, B, NF, H, chunk, stream
-    "spmm_grad_w": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P],
+    # keys, rows, order, counts, tmp, named, R, S, n_rows, digit_bits, passes,
+    # tile, stream
+    "spmm_sort_rows": [_P] * 6 + [_I64] * 6 + [_P],
+    # rows, order, named, val, mask, dh, out, head, tail, R, S, B, K, NF, H,
+    # chunk, stream
+    "spmm_grad_w": [_P] * 9 + [_I64] * 7 + [_P],
     # reps, alphas, g, gp, gamma, out, R, N, dtype, momentum, stream
     "weighted_merge": [_P, _P, _P, _P, ctypes.c_float, _P, _I64, _I64, _I64, _I64, _P],
     # q, k, v, out, B, Sq, Skv, Hq, Hkv, hd, causal, window, dtype, stream

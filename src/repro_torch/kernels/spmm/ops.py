@@ -4,7 +4,8 @@ Port of ``repro/kernels/spmm/ops.py``. ``spmm`` is differentiable with
 respect to ``feat_val`` and ``w`` through a ``torch.autograd.Function``
 (the reference's ``jax.custom_vjp``): the forward is the row-gather kernel
 (``csrc/spmm.cu``), the backward for ``w`` the transpose kernel
-``spmm_grad_w`` (``csrc/spmm_grad_w.cu``), and the backward for
+``spmm_grad_w`` (``csrc/spmm_grad_w.cu``, after the counting sort of the
+slots by row there, ``sort_rows_cuda``), and the backward for
 ``feat_val`` the plain gather-dot ``spmm_grad_val_ref``, which the
 reference also computes outside any kernel. CPU tensors run the plain
 versions (``ref.py``) and CUDA tensors the kernels; there is no switch that
@@ -17,9 +18,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-from .ref import spmm_grad_val_ref, spmm_grad_w_ref, spmm_ref
+from .ref import SORT_TILE, sort_passes, spmm_grad_val_ref, spmm_grad_w_ref, spmm_ref
 
-# sorted slots per block of the grad_w kernel (csrc/spmm_grad_w.cu)
+# sorted slots per block of the grad_w walk (csrc/spmm_grad_w.cu, at most 512)
 GRAD_W_CHUNK = 128
 
 
@@ -119,13 +120,47 @@ def spmm_cuda(feat_idx, feat_val, feat_mask, w):
 spmm_cuda.launches = 0  # kernel launches since the last reset
 
 
+def sort_rows_cuda(keys, n_rows: int, named=None):
+    """Launch the counting sort: each replica's keys (R, S) int32 in
+    [0, n_rows), sorted ascending with ties in slot order. Returns (rows,
+    order) int32, as ``torch.sort(stable=True)`` gives them
+    (``ref.sort_rows_ref`` is its plain version). ``named``, an
+    (R, n_rows rounded up to 16) uint8 tensor, gets 1 at [r, k] where a key
+    of replica r is k and 0 elsewhere below n_rows."""
+    if keys.device.type != "cuda" or keys.dtype != torch.int32:
+        raise ValueError("sort_rows_cuda needs int32 keys on a CUDA device")
+    if keys.ndim != 2 or not keys.is_contiguous():
+        raise ValueError(f"sort_rows_cuda needs contiguous (R, S) keys, got {tuple(keys.shape)}")
+    R, S = keys.shape
+    passes, bits = sort_passes(n_rows)
+    rows, order = torch.empty_like(keys), torch.empty_like(keys)
+    counts = torch.empty((passes * R * -(-S // SORT_TILE)) << bits, dtype=torch.int32,
+                         device=keys.device)
+    tmp = torch.empty(2 * min(passes - 1, 2) * R * S, dtype=torch.int32, device=keys.device)
+    with torch.cuda.device(keys.device):
+        err = _build.library().spmm_sort_rows(
+            keys.data_ptr(), rows.data_ptr(), order.data_ptr(), counts.data_ptr(),
+            tmp.data_ptr(), None if named is None else named.data_ptr(), R, S, n_rows, bits,
+            passes, SORT_TILE,
+            torch.cuda.current_stream(keys.device).cuda_stream,
+        )
+    _build.check(err, "spmm_sort_rows")
+    sort_rows_cuda.launches += 1
+    return rows, order
+
+
+sort_rows_cuda.launches = 0  # kernel launches since the last reset
+
+
 def spmm_grad_w_cuda(feat_idx, feat_val, feat_mask, dh, n_rows: int):
     """Launch the transpose CUDA kernel; raises on anything it does not take.
 
-    Per replica the S = B*K slots are stable-sorted by row id here, as the
-    reference argsorts outside its Pallas kernel; every scale-and-reduce
-    step, the dh gathers included, runs in the kernel. ``dh`` is taken in
-    f32, as the reference casts it.
+    Per replica the S = B*K slots are sorted by row id with the counting
+    sort above (stable: the reference argsorts outside its Pallas kernel),
+    which also marks the rows they name; the kernel reads each sorted slot's
+    sample, val and mask through the order and writes every row of the
+    uninitialised output once. ``dh`` is taken in f32, as the reference
+    casts it.
     """
     dh = dh.float().contiguous()
     _check_inputs("spmm_grad_w_cuda", feat_idx, feat_val, feat_mask, dh)
@@ -136,18 +171,18 @@ def spmm_grad_w_cuda(feat_idx, feat_val, feat_mask, dh, n_rows: int):
     H = dh.shape[-1]
     R = dh.shape[0] if dh.ndim == 3 else 1
     S = B * K
-    rows, order = torch.sort(feat_idx.reshape(R, S), dim=-1, stable=True)
-    samp = torch.div(order, K, rounding_mode="floor").int()
-    scale = (feat_val * feat_mask).reshape(R, S).gather(-1, order)
-    out = torch.zeros((R, n_rows, H), dtype=torch.float32, device=dh.device)
+    named = torch.empty((R, -(-n_rows // 16) * 16), dtype=torch.uint8, device=dh.device)
+    rows, order = sort_rows_cuda(feat_idx.reshape(R, S), n_rows, named)
+    out = torch.empty((R, n_rows, H), dtype=torch.float32, device=dh.device)
     n_chunks = -(-S // GRAD_W_CHUNK)
     head = torch.empty((R * n_chunks, H), dtype=torch.float32, device=dh.device)
     tail = torch.empty_like(head)
     with torch.cuda.device(dh.device):
         err = _build.library().spmm_grad_w(
-            rows.data_ptr(), samp.data_ptr(), scale.data_ptr(), dh.data_ptr(),
-            out.data_ptr(), head.data_ptr(), tail.data_ptr(),
-            R, S, B, n_rows, H, GRAD_W_CHUNK,
+            rows.data_ptr(), order.data_ptr(), named.data_ptr(), feat_val.data_ptr(),
+            feat_mask.data_ptr(),
+            dh.data_ptr(), out.data_ptr(), head.data_ptr(), tail.data_ptr(),
+            R, S, B, K, n_rows, H, GRAD_W_CHUNK,
             torch.cuda.current_stream(dh.device).cuda_stream,
         )
     _build.check(err, "spmm_grad_w")

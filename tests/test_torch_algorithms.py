@@ -1,7 +1,8 @@
 """Every algorithm of the reference's registry, in the port's trainer
 against a live reference trainer, on the same dataset and the same
 initial weights (``params_from_jax``): both gradient paths under the scan
-engine, and the ``legacy_loop`` engine for ``adaptive`` and ``sync``.
+engine, and the ``legacy_loop`` engine for ``adaptive`` and ``sync``; and
+``adaptive`` and ``elastic`` at 1, 2, 3, 5 and 8 replicas on both paths.
 
 Host decisions — u, b, lr, alphas, n_rounds, virtual time, perturbation —
 must be identical. Losses, accuracies and the final global model agree
@@ -50,12 +51,12 @@ def _ids(case):
     return f"{algo}-{engine}-{'sparse' if sparse else 'dense'}"
 
 
-def _cfg(cls, algo):
-    R = jalgorithms.get(algo).resolve_n_replicas(4)
+def _cfg(cls, algo, n_replicas=4):
+    R = jalgorithms.get(algo).resolve_n_replicas(n_replicas)
     return cls.from_bmax(B_MAX, algorithm=algo, n_replicas=R, mega_batch=MEGA)
 
 
-def _run_port(algo, engine, sparse, p0):
+def _run_port(algo, engine, sparse, p0, n_replicas=4, n_mb=N_MB):
     ds = make_xml_dataset(**DATA)
     train, test = train_test_split(ds, 0.2, seed=0)
     prov = SparseProvider.make(train, seed=0)
@@ -64,19 +65,19 @@ def _run_port(algo, engine, sparse, p0):
         init=lambda generator: port.params_from_jax(p0, "cpu"),
         loss_fn=base.loss_fn, sparse_grad_fn=base.sparse_grad_fn, config=base.config,
     )
-    tr = ElasticTrainer(model, prov, _cfg(ElasticConfig, algo), base_lr=LR, seed=0,
+    tr = ElasticTrainer(model, prov, _cfg(ElasticConfig, algo, n_replicas), base_lr=LR, seed=0,
                         device="cpu", engine=engine, sparse_grads=sparse)
-    return tr.run(N_MB, test_batches=prov.test_batches(test, B_MAX))
+    return tr.run(n_mb, test_batches=prov.test_batches(test, B_MAX))
 
 
-def _run_ref(algo, engine, sparse):
+def _run_ref(algo, engine, sparse, n_replicas=4, n_mb=N_MB):
     ds = jax_make_dataset(**DATA)
     train, test = jax_split(ds, 0.2, seed=0)
     prov = JProvider.make(train, seed=0)
     model = jref.make_model(jref.XMLMLPConfig(n_features=NF, n_classes=NC, hidden=H))
-    tr = JTrainer(model, prov, _cfg(JElasticConfig, algo), base_lr=LR, seed=0,
+    tr = JTrainer(model, prov, _cfg(JElasticConfig, algo, n_replicas), base_lr=LR, seed=0,
                   engine=engine, sparse_grads=sparse)
-    return tr.run(N_MB, test_batches=prov.test_batches(test, B_MAX))
+    return tr.run(n_mb, test_batches=prov.test_batches(test, B_MAX))
 
 
 @pytest.fixture(scope="module")
@@ -97,12 +98,9 @@ def test_registry_matches_reference():
                 == jalgorithms.get(name).resolve_n_replicas(4)), name
 
 
-@pytest.mark.parametrize("case", CASES, ids=_ids)
-def test_algorithm_matches_reference(case, p0):
-    algo, engine, sparse = case
-    state, mlog = _run_port(algo, engine, sparse, p0)
-    jstate, jlog = _run_ref(algo, engine, sparse)
-    assert len(mlog.records) == len(jlog.records) == N_MB
+def _assert_runs_match(port_run, ref_run, n_mb):
+    (state, mlog), (jstate, jlog) = port_run, ref_run
+    assert len(mlog.records) == len(jlog.records) == n_mb
     for rec, jrec in zip(mlog.records, jlog.records):
         for k in EXACT:
             assert rec[k] == jrec[k], (rec["megabatch"], k, rec[k], jrec[k])
@@ -111,6 +109,27 @@ def test_algorithm_matches_reference(case, p0):
     for k, v in state.global_model.items():
         np.testing.assert_allclose(v.numpy(), np.asarray(jstate.global_model[k]),
                                    err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_algorithm_matches_reference(case, p0):
+    algo, engine, sparse = case
+    _assert_runs_match(_run_port(algo, engine, sparse, p0), _run_ref(algo, engine, sparse), N_MB)
+
+
+SWEEP = [(a, R, sparse) for a in ("adaptive", "elastic") for R in (1, 2, 3, 5, 8)
+         for sparse in (True, False)]
+
+
+@pytest.mark.parametrize(
+    "case", SWEEP, ids=lambda c: f"{c[0]}-R{c[1]}-{'sparse' if c[2] else 'dense'}")
+def test_replica_count_matches_reference(case, p0):
+    """The replica dim at other sizes than 4: the vmap placement, the
+    scheduler's grids, Alg. 2's weights and the sparse input layer's (R, B,
+    K) slots, two mega-batches against a live reference run."""
+    algo, R, sparse = case
+    _assert_runs_match(_run_port(algo, "scan", sparse, p0, R, 2),
+                       _run_ref(algo, "scan", sparse, R, 2), 2)
 
 
 @pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])

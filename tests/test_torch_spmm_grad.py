@@ -9,7 +9,9 @@
   ``jax.vjp`` of the reference's ``ops.spmm`` (custom VJP, Pallas both
   ways), for f32 and bf16 W;
 * a NaN in ``dh`` of a sample whose masked slot names row 0 poisons row 0
-  in both packages: masked slots are multiplied in, not dropped.
+  in both packages: masked slots are multiplied in, not dropped;
+* a masked slot's scale is exactly 0 whatever its val holds (the
+  reference's ``val * mask`` is a select), in dW and in d feat_val.
 
 Tolerances are the reference's kernel tolerances (tests/test_kernels.py):
 f32 rtol 2e-4 / atol 2e-5, the two sum each row's slots in different
@@ -25,7 +27,7 @@ import torch
 from repro.kernels.spmm.ops import spmm as jax_spmm
 from repro.kernels.spmm.ops import spmm_grad_w as jax_grad_w
 from repro.kernels.spmm.ref import spmm_grad_w_ref as jax_grad_w_ref
-from repro_torch.kernels.spmm.ops import spmm, spmm_grad_w, spmm_grad_w_cuda
+from repro_torch.kernels.spmm.ops import sort_rows_cuda, spmm, spmm_grad_w, spmm_grad_w_cuda
 from repro_torch.kernels.spmm.ref import spmm_grad_w_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -184,3 +186,41 @@ def test_grad_w_cuda_path_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         spmm_grad_w_cuda(idx, val, mask, dh, 10)
     assert spmm_grad_w_cuda.launches == 0
+
+
+@pytest.mark.parametrize("grad", ["w", "val"])
+def test_masked_slot_scale_is_exactly_zero(grad):
+    """The reference computes ``val * mask`` as a select (XLA rewrites a
+    product with a converted bool): a masked slot with an infinite val adds
+    nothing to dW, and a masked slot whose W row holds NaN gets a d feat_val
+    of exactly 0. The port matches both."""
+    rng = np.random.default_rng(12)
+    B, K, NF, H = 4, 8, 20, 16
+    idx, val, mask, dh = _inputs(rng, (), B, K, NF, H)
+    idx[idx == 0] = 1
+    mask[2, 5:] = False
+    idx[2, 5:] = 0
+    if grad == "w":
+        val[2, 6] = np.inf
+        got = spmm_grad_w(*_t(idx, val, mask, dh), NF).numpy()
+        want = np.asarray(jax_grad_w(*_j(idx, val, mask, dh), NF))
+    else:
+        w = rng.normal(size=(NF, H)).astype(np.float32)
+        w[0, 3] = np.nan
+        tval = torch.from_numpy(val).requires_grad_(True)
+        spmm(torch.from_numpy(idx), tval, torch.from_numpy(mask),
+             torch.from_numpy(w)).backward(torch.from_numpy(dh))
+        got = tval.grad.numpy()
+        _, pull = jax.vjp(lambda v: jax_spmm(jnp.asarray(idx), v, jnp.asarray(mask),
+                                             jnp.asarray(w)), jnp.asarray(val))
+        want = np.asarray(pull(jnp.asarray(dh))[0])
+        assert (got[2, 5:] == 0).all()
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_sort_rows_cuda_rejects_cpu_tensors():
+    """The counting sort's launcher never falls back either."""
+    with pytest.raises(ValueError, match="CUDA"):
+        sort_rows_cuda(torch.zeros((2, 5), dtype=torch.int32), 10)
+    assert sort_rows_cuda.launches == 0
