@@ -82,8 +82,30 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    under the profiler (the device's busy share of a decode step). Last,
    moonshot's last-position logits over eight more token draws: flags on
    and off against each other and against an f32 prefill (printed only).
+9. train   — LM training through ``ElasticTrainer.run`` (Adaptive SGD,
+   R = 4, kernel flags off: the LM kernels are forward-only, as in the
+   reference). (a) Reduced llama3.2-1b, mamba2-780m, moonshot-v1-16b-a3b
+   and jamba-1.5-large-398b in f32 (TF32 off), 2 mega-batches on the card
+   against the CPU: host decisions identical, losses and the global model
+   within 1e-4, one weighted_merge launch per leaf and barrier. (b)
+   tinyllama-1.1b at full width and depth (22 layers, d_model 2048, vocab
+   32,000, bf16, remat), 4 replicas x b_max 4 x 1,024 tokens a round (cut
+   from ``INPUT_SHAPES["train_4k"]``: sequence 4,096 -> 1,024, global
+   batch 256 -> 16), mega_batch 8, 3 mega-batches: loss, u, b, alphas, wall
+   seconds and tokens/s a mega-batch, finite losses and no guard repair,
+   launch counts, peak memory and the init time; one more round by hand
+   (every leaf's gradient finite and nonzero in every replica); the
+   weighted_merge of that barrier, leaf by leaf, against its plain version
+   within one bf16 ulp (``MERGE_BF16_TOL``; a merge without the momentum
+   term, with g and gp swapped or with the norm leaves zeroed must fail
+   it), timed per barrier beside its byte bound and one ``einsum`` a leaf;
+   and one warm mega-batch under the profiler (top device ops, the
+   device's busy share and the host's).
 
-Then one JSON line with every kernel's numbers, and as the last line
+Then one JSON line with every kernel's numbers (weighted_merge's from
+phase 3's f32 w2 leaf, with phase 9's full-width barrier under
+``lm_barrier``, per barrier, and its launches on both paths), and as
+the last line
 ``{"ok": true, "device": {...}}``. The data are synthetic, drawn from
 ``SEED``; the weights are random.
 """
@@ -196,6 +218,24 @@ def device_breakdown(label: str, fn, reps: int = 20) -> dict:
     return {m.group(1).split("::")[-1]: ms for m, (_, ms, _) in zip(short, rows)}
 
 
+def profile_call(label: str, fn, top: int):
+    """One call of ``fn`` under the profiler: wall time, the device's busy
+    time and op count, and the ``top`` kernels by device time."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = sorted(prof.key_averages(), key=lambda e: -device_us(e))
+    busy = sum(device_us(e) for e in per_kernel) / 1e6
+    n_ops = sum(e.count for e in per_kernel)
+    print(f"profile {label}: {wall:.3f} s wall, device busy {busy:.3f} s "
+          f"({busy / wall:.1%}), {n_ops} device ops")
+    for e in per_kernel[:top]:
+        print(f"profile {label}: {device_us(e) / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
+    return wall, busy, n_ops
+
+
 def check_close(what: str, got, want, tol: dict) -> float:
     """Max |got - want| in f32; raises if outside ``tol`` (rtol and atol
     per element, and, where it names one, ``rel_l2`` on the whole)."""
@@ -245,6 +285,233 @@ def amazon_like_dataset(n_samples: int, n_features: int, n_classes: int, rng) ->
         values=rng.gamma(2.0, 0.5, len(indices)).astype(np.float32),
         label_ptr=label_ptr.astype(np.int64), labels=labels,
     )
+
+
+# phase 9's settings. (a) reduced models, card against CPU: 20 batches of
+# up to 4 samples of 16 tokens a mega-batch, so the update counts differ
+# across the 4 replicas (tests/torch_lm_runs.py uses the same). (b) full
+# width: tinyllama-1.1b, 4 replicas of up to 4 samples of 1,024 tokens a
+# round, 8 batches a mega-batch.
+LM_SMALL = dict(b_max=4, seq_len=16, mega_batch=20, lr=0.2, megabatches=2)
+LM_FULL = dict(arch="tinyllama-1.1b", b_max=4, seq_len=1024, mega_batch=8, lr=0.05,
+               megabatches=3)
+# card against CPU at small width: f32 with TF32 off, the same sums in other
+# orders (cuBLAS, the blockwise attention, the SSD chunks, the MoE combine),
+# as phase 4 holds the XML trainer
+LM_CARD_CPU_TOL = 1e-4
+# the full-width barrier's merge against its plain version: both sum the R
+# products and the momentum term in f32 and round to bf16 once, so they
+# differ by at most one bf16 ulp, where the f32 sums straddle a rounding
+# boundary (under 2^-7 of the value; rtol 8e-3 leaves room). atol only for
+# values near zero: the norm leaves start at 0. BF16_TOL's 2e-2 is at or
+# above the size of every leaf here (|w| ~ 0.01-0.02) and would pass a
+# merge without the momentum term; these three wrong merges must fail it:
+MERGE_BF16_TOL = dict(rtol=8e-3, atol=1e-6)
+MERGE_MUTANTS = ("no momentum term", "g and gp swapped", "norm leaves zeroed")
+
+
+def lm_training_phase(dev, reset_counts, read_counts) -> dict:
+    """Phase 9: Adaptive SGD trains the decoder-only LM families through
+    ``ElasticTrainer.run``. Returns weighted_merge's numbers at one
+    full-width barrier, with its launches in the full-width run."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import INPUT_SHAPES, ElasticConfig
+    from repro_torch.core.trainer import ElasticTrainer, dense_value_and_grad
+    from repro_torch.data.providers import TokenProvider
+    from repro_torch.kernels.weighted_merge.ops import merge_cuda, merge_pytree
+    from repro_torch.kernels.weighted_merge.ref import weighted_merge_ref
+    from repro_torch.models import model as MDL
+    from repro_torch.optim.sgd import sgd_update
+
+    R = 4
+    exact = ("u", "b", "lr", "alphas", "n_rounds", "virtual_time", "pert_active")
+
+    def lm_run(cfg, where, b_max, seq_len, mega_batch, lr, megabatches, verbose=False):
+        prov = TokenProvider.make(cfg.vocab_size, seq_len, seed=SEED)
+        test = prov.test_batches(1, b_max)
+        trainer = ElasticTrainer(
+            MDL.make_model(cfg), prov,
+            ElasticConfig.from_bmax(b_max, n_replicas=R, mega_batch=mega_batch),
+            base_lr=lr, seed=SEED, device=where,
+        )
+        state, mlog = trainer.run(megabatches, test_batches=test, verbose=verbose)
+        return trainer, prov, state, mlog
+
+    # ---- (a) small width, card against CPU ----
+    for arch in ("llama3.2-1b", "mamba2-780m", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b"):
+        cfg = ARCHS[arch].reduced()   # f32, kernel flags off
+        reset_counts()
+        _, _, card_state, card_log = lm_run(cfg, "cuda", **LM_SMALL)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _, _, cpu_state, cpu_log = lm_run(cfg, "cpu", **LM_SMALL)
+        recs = list(zip(card_log.records, cpu_log.records))
+        for a, b in recs:
+            for k in exact:
+                if a[k] != b[k]:
+                    raise RuntimeError(f"train {cfg.name}: {k} differs card vs CPU: "
+                                       f"{a[k]} vs {b[k]}")
+        loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                       for a, b in recs for k in ("train_loss", "test_loss"))
+        model_err = max((v.cpu().float() - cpu_state.global_model[k].float()).abs().max().item()
+                        for k, v in card_state.global_model.items())
+        want = {name: 0 for name in counts}
+        want["weighted_merge"] = len(card_log.records) * len(card_state.global_model)
+        print(f"train {cfg.name} card vs cpu: host decisions identical over {len(recs)} "
+              f"mega-batches (u {[a['u'] for a, _ in recs]}); loss rel err {loss_err:.3g}, "
+              f"global model max abs err {model_err:.3g} (tol {LM_CARD_CPU_TOL}); "
+              f"weighted_merge launches {counts['weighted_merge']} "
+              f"({len(card_state.global_model)} leaves x {len(recs)} barriers)")
+        if len(recs) != LM_SMALL["megabatches"] or max(loss_err, model_err) > LM_CARD_CPU_TOL:
+            raise RuntimeError(f"train {cfg.name}: card and CPU runs disagree beyond tolerance")
+        if counts != want:
+            raise RuntimeError(f"train {cfg.name}: launch counts {counts} != expected {want}")
+        del card_state, cpu_state
+    torch.cuda.empty_cache()
+
+    # ---- (b) full width: tinyllama-1.1b, all 22 layers, bf16 ----
+    cfg = ARCHS[LM_FULL["arch"]]
+    full = {k: v for k, v in LM_FULL.items() if k != "arch"}
+    shape = INPUT_SHAPES["train_4k"]
+    print(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat_policy}; INPUT_SHAPES['train_4k'] "
+          f"cut: seq_len {shape.seq_len} -> {full['seq_len']}, global batch "
+          f"{shape.global_batch} -> {R * full['b_max']} a round ({R} replicas x b_max "
+          f"{full['b_max']}); mega_batch {full['mega_batch']}, {full['megabatches']} mega-batches "
+          f"(the first cold)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer, prov, state, mlog = lm_run(cfg, "cuda", verbose=True, **full)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_leaves = len(state.global_model)
+    n_params = sum(v.numel() for v in state.global_model.values())
+    tokens = full["mega_batch"] * full["b_max"] * full["seq_len"]
+    prev = 0.0
+    for rec in mlog.records:
+        wall = rec["wall_clock"] - prev
+        prev = rec["wall_clock"]
+        print(f"train {cfg.name} mb={rec['megabatch']} loss={rec['train_loss']:.6f} "
+              f"test_loss={rec['test_loss']:.6f} u={rec['u']} b={rec['b']} "
+              f"alphas={rec['alphas']} n_rounds={rec['n_rounds']} seconds={wall:.3f} "
+              f"tokens/s={tokens / wall:.0f} guard_repaired={rec.get('guard_repaired', [])}")
+    print(f"train {cfg.name}: {n_params / 1e9:.3f} B params in {n_leaves} leaves; init "
+          f"{trainer.init_seconds:.1f} s (CPU generator, then to the card); peak device memory "
+          f"{peak_gb:.2f} GB; launches {counts}")
+    losses = [r[k] for r in mlog.records for k in ("train_loss", "test_loss")]
+    if not all(np.isfinite(losses)) or any("guard_repaired" in r for r in mlog.records):
+        raise RuntimeError(f"train {cfg.name}: non-finite loss or a guard repair")
+    want = {name: 0 for name in counts}
+    want["weighted_merge"] = n_leaves * len(mlog.records)
+    if counts != want:
+        raise RuntimeError(f"train {cfg.name}: launch counts {counts} != expected {want}")
+    launches = counts["weighted_merge"]
+
+    # one more round by hand: every leaf's gradient finite and nonzero in
+    # every replica (a dropped gradient shows as an all-zero leaf), then the
+    # SGD step, so the replicas differ at the barrier measured below
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             prov.stack([prov.fetch(full["b_max"], full["b_max"]) for _ in range(R)]).items()}
+    (loss, _), grads = dense_value_and_grad(trainer.model.loss_fn, state.replicas, batch)
+    bad = [k for k, g in grads.items()
+           if not (torch.isfinite(g).all().item() and bool((g.flatten(1) != 0).any(1).all()))]
+    print(f"train {cfg.name} gradients: {len(grads)} leaves, each finite and nonzero in "
+          f"every replica: {not bad} {bad}; round loss {loss.tolist()}")
+    if bad:
+        raise RuntimeError(f"train {cfg.name}: zero or non-finite gradient in {bad}")
+    lr = torch.as_tensor(np.asarray(state.lr, np.float32), device=dev)
+    sgd_update(state.replicas, grads, lr, trainer.sgd)
+    del grads, batch
+    torch.cuda.empty_cache()
+
+    # weighted_merge at one barrier of this run: every leaf against its
+    # plain version, three wrong merges that the same check must refuse,
+    # then timed per barrier beside its bound and one einsum a leaf (the
+    # weighted sum without the momentum term)
+    reps, g, gp = state.replicas, state.global_model, state.prev_global
+    alphas = torch.tensor(mlog.records[-1]["alphas"], dtype=torch.float32, device=dev)
+    gamma = trainer.cfg.gamma
+
+    def kernel():
+        return merge_pytree(reps, alphas, g, gp, gamma)
+
+    def plain():
+        return {k: weighted_merge_ref(v.reshape(R, -1), alphas, g[k].reshape(-1),
+                                      gp[k].reshape(-1), gamma) for k, v in reps.items()}
+
+    a_cast = alphas.to(reps[next(iter(reps))].dtype)
+
+    def library():
+        return [torch.einsum("r,rn->n", a_cast, v.reshape(R, -1)) for v in reps.values()]
+
+    merge_cuda.launches = 0
+    got = kernel()
+    per_barrier = merge_cuda.launches
+    caught = {m: [] for m in MERGE_MUTANTS}
+    err = 0.0
+    for k, v in reps.items():
+        args = (v.reshape(R, -1), alphas, g[k].reshape(-1), gp[k].reshape(-1))
+        want = weighted_merge_ref(*args, gamma)
+        err = max(err, check_close(f"weighted_merge barrier {k}", got[k].reshape(-1), want,
+                                   MERGE_BF16_TOL))
+        wrong = {
+            "no momentum term": weighted_merge_ref(*args, 0.0),
+            "g and gp swapped": weighted_merge_ref(args[0], alphas, args[3], args[2], gamma),
+            "norm leaves zeroed": torch.zeros_like(want) if k.endswith("norm") else want,
+        }
+        for m, w in wrong.items():
+            if not torch.allclose(w.float(), want.float(), **MERGE_BF16_TOL):
+                caught[m].append(k)
+        del want, wrong
+    del got
+    for m, leaves in caught.items():
+        print(f"weighted_merge barrier, a merge with {m}: fails {MERGE_BF16_TOL} "
+              f"in {len(leaves)} of {n_leaves} leaves {leaves}")
+    if not all(caught.values()):
+        raise RuntimeError(f"weighted_merge barrier: {MERGE_BF16_TOL} passes a wrong merge "
+                           f"({[m for m, leaves in caught.items() if not leaves]})")
+    elt = g[next(iter(g))].element_size()
+    nbytes = (R + 3) * n_params * elt + R * 4 * n_leaves
+    flops = (2 * R + 3) * n_params
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
+    b = dict(max_abs_err=err, bound_ms_per_barrier=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations", path="cuda_core",
+             launches_per_barrier=per_barrier, leaves=n_leaves, params=n_params,
+             dtype=str(g[next(iter(g))].dtype).removeprefix("torch."))
+    # the kernel's device time a barrier: the merge_kernel rows of one
+    # profiler trace, taken only where that trace holds every launch (one a
+    # leaf); else CUDA events around each call. Events also time all three
+    # (a barrier's calls queue back to back, so the host's gaps are small)
+    rows = device_ms_by_kernel(kernel, reps=10)
+    merge_rows = [(ms, count) for name, ms, count in rows if "merge_kernel" in name]
+    seen = sum(count for _, count in merge_rows)
+    b["call_ms_per_barrier"] = cuda_ms(kernel, reps=10, warmup=1)
+    if seen == n_leaves:
+        b["ms_per_barrier"], b["timing"] = sum(ms for ms, _ in merge_rows), "profiler"
+    else:
+        b["ms_per_barrier"], b["timing"] = b["call_ms_per_barrier"], "events"
+    b["plain_ms_per_barrier"] = cuda_ms(plain, reps=10, warmup=1)
+    b["library_ms_per_barrier"] = cuda_ms(library, reps=10, warmup=1)
+    b["share"] = b["bound_ms_per_barrier"] / b["ms_per_barrier"]
+    print(f"weighted_merge barrier: the profiler saw {seen} of {n_leaves} merge launches a "
+          f"call; the kernel's time from the {b['timing']}, plain and einsum from CUDA events")
+    print(f"kernel weighted_merge[{cfg.name} barrier, bf16, R={R}, {n_leaves} leaves, "
+          f"{n_params / 1e9:.3f} B params]: {per_barrier} launches a barrier; "
+          + " ".join(f"{k} {v:.4g}" for k, v in b.items() if isinstance(v, float))
+          + f" ({nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} GFLOP)")
+    if per_barrier != n_leaves:
+        raise RuntimeError(f"weighted_merge: {per_barrier} launches for {n_leaves} leaves")
+
+    # where a warm full-width mega-batch's time goes
+    wall, busy, _ = profile_call(f"train {cfg.name} mega-batch",
+                                 lambda: trainer.run_megabatch(state), top=15)
+    print(f"profile train {cfg.name}: host share of the wall time {1 - busy / wall:.1%}")
+    del trainer, state, reps, g, gp
+    torch.cuda.empty_cache()
+    b["launches"] = launches
+    return b
 
 
 def main() -> int:
@@ -1028,22 +1295,6 @@ def main() -> int:
     # ---- 8. full-width prefill and greedy decoding, one card ---------------
     full_models = (("llama3.2-1b", 16), ("mamba2-780m", 48), ("moonshot-v1-16b-a3b", 4))
 
-    def profile_call(label, fn, top):
-        """One call of ``fn`` under the profiler: wall time, the device's
-        busy time and op count, and the ``top`` kernels by device time."""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        per_kernel = sorted(prof.key_averages(), key=lambda e: -device_us(e))
-        busy = sum(device_us(e) for e in per_kernel) / 1e6
-        n_ops = sum(e.count for e in per_kernel)
-        print(f"profile {label}: {wall:.3f} s wall, device busy {busy:.3f} s "
-              f"({busy / wall:.1%}), {n_ops} device ops")
-        for e in per_kernel[:top]:
-            print(f"profile {label}: {device_us(e) / 1e3:9.3f} ms x{e.count:<4d} {e.key[:100]}")
-        return wall, busy, n_ops
     lm_launches = dict.fromkeys(lm_names, 0)
     for arch, depth in full_models:
         base = dataclasses.replace(ARCHS[arch], n_layers=depth)
@@ -1145,6 +1396,12 @@ def main() -> int:
     del params, params32, steps, logits
     torch.cuda.empty_cache()
 
+    # ---- 9. LM training: Adaptive SGD on the decoder-only families ---------
+    # weighted_merge's entry keeps phase 3's f32 w2 leaf at its top level
+    # and nests the full-width LM barrier's numbers, per barrier
+    barrier = lm_training_phase(dev, reset_counts, read_counts)
+    results["weighted_merge"]["lm_barrier"] = barrier
+
     sources = {
         "spmm": ("src/repro_torch/csrc/spmm.cu", "src/repro/kernels/spmm/spmm.py:74"),
         "weighted_merge": ("src/repro_torch/csrc/weighted_merge.cu",
@@ -1158,10 +1415,14 @@ def main() -> int:
         "moe_ffn_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
                         "src/repro/kernels/moe_gmm/moe_gmm.py:59"),
     }
-    # launches: spmm and weighted_merge on the main path (phase 5),
-    # spmm_grad_w on the dense-gradient path (phase 6), the LM kernels on
-    # the first flags-on prefill of each full-width model (phase 8)
+    # launches: spmm on the XML main path (phase 5), spmm_grad_w on the
+    # dense-gradient path (phase 6), the LM kernels on the first flags-on
+    # prefill of each full-width model (phase 8), weighted_merge on the XML
+    # main path (phase 5) and in the full-width LM training run (phase 9)
     launches["spmm_grad_w"] = dense_launches["spmm_grad_w"]
+    results["weighted_merge"]["launches_by_path"] = {
+        "xml_main": launches["weighted_merge"], "lm_train": barrier["launches"]}
+    launches["weighted_merge"] += barrier["launches"]
     results["spmm_grad_w"]["sort"]["launches"] = dense_launches["sort_rows"]
     launches.update(lm_launches)
     kernels = []

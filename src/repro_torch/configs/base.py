@@ -3,8 +3,8 @@
 Copied from ``repro/configs/base.py``: ``ModelConfig`` (the LM
 architectures; ``reduced()`` is the small smoke variant), ``ElasticConfig``
 (the paper's Adaptive SGD hyperparameters, Alg. 1 + 2) and ``InputShape``
-with the assigned ``INPUT_SHAPES``. ``remat``/``remat_policy`` matter only
-to training and are read by nothing in the port yet.
+with the assigned ``INPUT_SHAPES``. ``remat``/``remat_policy`` are read by
+LM training (``models.model._remat``).
 """
 from __future__ import annotations
 

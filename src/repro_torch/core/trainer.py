@@ -25,6 +25,12 @@ Gradients: the model's row-sparse ``sparse_grad_fn`` when it has one and
 ``sparse_grads`` is True; otherwise dense autograd through ``loss_fn``
 (the reference's ``jax.vmap(jax.value_and_grad(loss_fn))``, its oracle for
 the sparse path), which reaches ``w1`` through ``spmm``'s backward kernel.
+The LM (``models.model.make_model``) has only the dense path; its kernel
+flags must be off, since its kernels have no backward (``make_model``
+refuses them).
+
+``train_round`` and ``merge_replicas`` are the round and the merge as
+plain functions; the engine and ``launch.steps`` both run them.
 
 Device rule: ``device=None`` means CUDA and raises where there is none;
 the CPU runs only when asked for (``device="cpu"``), as the tests do. On
@@ -69,6 +75,47 @@ def _to_device(arrays: dict, device: torch.device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
+def dense_value_and_grad(loss_fn, replicas: dict, batch: dict):
+    """((loss, aux), grads) of every replica on its own batch, by autograd
+    through ``loss_fn`` over the replica-stacked leaves. The leaves share
+    storage with ``replicas``, and replica r's loss depends on replica r's
+    parameters alone, so the gradient of the summed loss is every replica's
+    own gradient."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in replicas.items()}
+    with torch.enable_grad():
+        loss, aux = loss_fn(leaves, batch)
+        grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
+    aux = {k: v.detach() for k, v in aux.items()}
+    return (loss.detach(), aux), dict(zip(leaves, grads))
+
+
+def train_round(grads_fn, replicas, momentum, batch, lr_vec, update_mask, sgd: SGDConfig,
+                transforms=None, live: bool = True):
+    """One lockstep round over all R replicas: ``grads_fn``'s batched loss
+    and gradients, the algorithm's gradient transform, then the in-place
+    SGD update. ``live`` (host) says whether any replica is unmasked; a
+    round without one leaves the replicas as they are, the post-round hook
+    included. Returns (replicas, momentum, loss, aux)."""
+    (loss, aux), grads = grads_fn(replicas, batch)
+    if transforms is not None and transforms.grad_transform is not None:
+        grads = transforms.grad_transform(grads, update_mask)
+    replicas, momentum = sgd_update(
+        replicas, grads, lr_vec, sgd, momentum_state=momentum, update_mask=update_mask,
+    )
+    if transforms is not None and transforms.post_round is not None and live:
+        replicas = transforms.post_round(replicas)
+    return replicas, momentum, loss, aux
+
+
+def merge_replicas(replicas, alphas, global_model, prev_global, gamma):
+    """Normalized merge (Alg. 2 tensor math): returns (new_global,
+    replicas reset to it). gamma=0 / None globals skip the global-momentum
+    term — a plain weighted average."""
+    new_global = asgd.normalized_merge(replicas, alphas, global_model, prev_global, gamma)
+    n_replicas = next(iter(replicas.values())).shape[0]
+    return new_global, tu.tree_broadcast_replicas(new_global, n_replicas)
+
+
 @dataclass
 class ElasticTrainer:
     model: TrainableModel
@@ -91,6 +138,7 @@ class ElasticTrainer:
                 f"only the 'vmap' placement is ported, got {self.cfg.placement!r}"
             )
         self.device = resolve_device(self.device)
+        self.init_seconds = None  # set by init_state
         self.algo = algorithms.get(self.cfg.algorithm)
         if self.speed is None:
             self.speed = SpeedModel(self.cfg.n_replicas, seed=self.seed)
@@ -102,13 +150,8 @@ class ElasticTrainer:
     # tensor math exposed to Algorithm.merge implementations
     # ------------------------------------------------------------------
     def merge_models(self, replicas, alphas, global_model, prev_global, gamma):
-        """Normalized merge (Alg. 2 tensor math): returns (new_global,
-        replicas reset to it). gamma=0 / None globals skip the
-        global-momentum term — a plain weighted average."""
-        new_global = asgd.normalized_merge(
-            replicas, alphas, global_model, prev_global, gamma
-        )
-        return new_global, tu.tree_broadcast_replicas(new_global, self.cfg.n_replicas)
+        """``merge_replicas``: (new_global, replicas reset to it)."""
+        return merge_replicas(replicas, alphas, global_model, prev_global, gamma)
 
     def replica_norms(self, replicas) -> np.ndarray:
         """(R,) per-replica L2 norms on the host (feeds Alg. 2's
@@ -120,9 +163,14 @@ class ElasticTrainer:
     # ------------------------------------------------------------------
     def init_state(self) -> ElasticState:
         R = self.cfg.n_replicas
-        # a CPU generator: the same seed gives the same weights on every device
+        # a CPU generator: the same seed gives the same weights on every
+        # device (about 10 s for a 1.1 B-parameter LM; ``init_seconds``)
+        t0 = time.perf_counter()
         params = self.model.init(torch.Generator().manual_seed(self.seed))
         params = {k: v.to(self.device) for k, v in params.items()}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.init_seconds = time.perf_counter() - t0
         replicas = tu.tree_broadcast_replicas(params, R)
         momentum = init_momentum(replicas, self.sgd)
         extras = self.algo.init_state_extras(self.cfg, params)
@@ -144,32 +192,13 @@ class ElasticTrainer:
         """((loss, aux), grads) of every replica on its own batch."""
         if self.sparse_grads and self.model.sparse_grad_fn is not None:
             return self.model.sparse_grad_fn(replicas, batch)
-        # dense autograd: the leaves share storage with the replicas, and
-        # replica r's loss depends on replica r's parameters alone, so the
-        # gradient of the summed loss is every replica's own gradient
-        leaves = {k: p.detach().requires_grad_(True) for k, p in replicas.items()}
-        with torch.enable_grad():
-            loss, aux = self.model.loss_fn(leaves, batch)
-            grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
-        aux = {k: v.detach() for k, v in aux.items()}
-        return (loss.detach(), aux), dict(zip(leaves, grads))
+        return dense_value_and_grad(self.model.loss_fn, replicas, batch)
 
     def _round(self, replicas, momentum, batch, lr_vec, update_mask, live: bool):
-        """One lockstep round over all R replicas: batched loss and
-        gradients, then the in-place SGD update. ``live`` (host) says
-        whether any replica is unmasked; a round without one leaves the
-        replicas as they are, the post-round hook included."""
-        (loss, aux), grads = self._grads(replicas, batch)
-        transforms = self._transforms
-        if transforms.grad_transform is not None:
-            grads = transforms.grad_transform(grads, update_mask)
-        replicas, momentum = sgd_update(
-            replicas, grads, lr_vec, self.sgd,
-            momentum_state=momentum, update_mask=update_mask,
-        )
-        if transforms.post_round is not None and live:
-            replicas = transforms.post_round(replicas)
-        return replicas, momentum, loss, aux
+        """``train_round`` with this trainer's gradients, SGD settings and
+        the algorithm's round transforms."""
+        return train_round(self._grads, replicas, momentum, batch, lr_vec, update_mask,
+                           self.sgd, self._transforms, live)
 
     def _run_rounds_scan(self, state: ElasticState, plan, b_slots: int):
         """Upload the stacked plan once, run its rounds on the device, and
@@ -366,6 +395,9 @@ class ElasticTrainer:
         """Train ``n_megabatches`` mega-batches, evaluating the global model
         on ``test_batches`` (when given) after each of them."""
         state = self.init_state()
+        if verbose:
+            log("init", seconds=round(self.init_seconds, 3),
+                params=tu.tree_size(state.replicas) // self.cfg.n_replicas)
         mlog = MetricsLog()
         t0 = time.perf_counter()
         for mb in range(n_megabatches):

@@ -1,11 +1,12 @@
 """Data providers: the trainer's uniform batch interface.
 
-Copied from ``repro/data/providers.py`` (``plan_update_mask`` and
-``SparseProvider`` without the staged-prefetch half).
+Copied from ``repro/data/providers.py`` (``plan_update_mask``,
+``SparseProvider`` and ``TokenProvider``, each without the staged-prefetch
+half: ``fetch_staged``, ``staging_spec`` and ``stack_plan``'s ``out``).
 
 A provider fetches variable-size batches into fixed-slot payloads, reports
-their work units (nnz — feeds the virtual clock), and stacks per-replica
-payloads into the (R, ...) arrays of a lockstep round.
+their work units (nnz / tokens — feeds the virtual clock), and stacks
+per-replica payloads into the (R, ...) arrays of a lockstep round.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 
 from .batcher import SparseBatcher, stack_plan_batches, stack_replica_batches
 from .sparse import SparseBatch, SparseDataset, pack_batch
+from .tokens import TokenStream, stack_plan_token_batches, stack_token_batches
 
 
 def plan_update_mask(grid: list[list]) -> np.ndarray:
@@ -58,3 +60,41 @@ class SparseProvider:
                 pack_batch(ds, ids, b_slots, self.batcher.max_nnz, self.batcher.max_labels)
             )
         return out
+
+
+@dataclass
+class TokenProvider:
+    stream: TokenStream
+    seq_len: int
+
+    @staticmethod
+    def make(vocab_size: int, seq_len: int, seed: int = 0) -> "TokenProvider":
+        return TokenProvider(TokenStream(vocab_size, seed=seed), seq_len)
+
+    def fetch(self, take: int, b_slots: int) -> dict:
+        return self.stream.batch(take, b_slots, self.seq_len)
+
+    def empty(self, b_slots: int) -> dict:
+        return self.stream.batch(0, b_slots, self.seq_len)
+
+    def work_units(self, payload: dict) -> int:
+        return int(payload["sample_mask"].sum()) * self.seq_len
+
+    def stack(self, payloads: list[dict]) -> dict:
+        return stack_token_batches(payloads)
+
+    def state_dict(self) -> dict:
+        return self.stream.state_dict()
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.stream.load_state_dict(sd)
+
+    def stack_plan(self, grid: list[list], b_slots: int) -> tuple[dict, np.ndarray]:
+        """Whole-plan stack: (n_rounds, R, ...) arrays + (n_rounds, R) mask."""
+        return (
+            stack_plan_token_batches(grid, self.empty(b_slots)),
+            plan_update_mask(grid),
+        )
+
+    def test_batches(self, n_batches: int, b_slots: int):
+        return [self.fetch(b_slots, b_slots) for _ in range(n_batches)]

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 from .ref import attention_ref
 
@@ -28,7 +28,9 @@ PATHS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
-    """GQA-native attention. q (B,Sq,Hq,hd); k/v (B,Skv,Hkv,hd) -> (B,Sq,Hq,hd)."""
+    """GQA-native attention. q (B,Sq,Hq,hd); k/v (B,Skv,Hkv,hd) -> (B,Sq,Hq,hd).
+    Forward only: raises where autograd would record it (``refuse_grad``)."""
+    refuse_grad("flash_attention", q, k, v)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_ref(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -36,6 +38,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     """Launch the CUDA kernel; raises on anything it does not take."""
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention_cuda needs q, k and v on one CUDA device")
     if q.dtype not in PATHS or k.dtype != q.dtype or v.dtype != q.dtype:

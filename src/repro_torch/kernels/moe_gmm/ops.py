@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 from .ref import moe_ffn_gmm_ref
 
@@ -25,7 +25,9 @@ PATHS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 
 
 def moe_ffn_gmm(buf, wi, wg, wo):
-    """Fused SwiGLU grouped matmul. buf (E,C,D) -> (E,C,D)."""
+    """Fused SwiGLU grouped matmul. buf (E,C,D) -> (E,C,D).
+    Forward only: raises where autograd would record it (``refuse_grad``)."""
+    refuse_grad("moe_ffn_gmm", buf, wi, wg, wo)
     if all(t.device.type == "cpu" for t in (buf, wi, wg, wo)):
         return moe_ffn_gmm_ref(buf, wi, wg, wo)
     return moe_ffn_gmm_cuda(buf, wi, wg, wo)
@@ -47,6 +49,7 @@ def moe_ffn_gmm_cuda(buf, wi, wg, wo):
     tensor maps need 16-byte row strides: D and F are zero-padded to
     multiples of 8, as the reference pads to its blocks. Padded F columns
     add silu(0) * 0 = 0; padded D columns are cut from the output."""
+    refuse_grad("moe_ffn_gmm", buf, wi, wg, wo)
     tensors = (buf, wi, wg, wo)
     if buf.device.type != "cuda" or any(t.device != buf.device for t in tensors):
         raise ValueError("moe_ffn_gmm_cuda needs buf, wi, wg and wo on one CUDA device")

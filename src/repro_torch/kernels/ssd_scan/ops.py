@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 from .ref import ssd_scan_ref
 
@@ -27,7 +27,9 @@ PATHS = {torch.float32: "tensor_core", torch.bfloat16: "tensor_core"}
 
 
 def ssd_scan(x, dA, Bm, Cm, chunk: int = 256):
-    """Chunked SSD scan. Returns (y (B,L,H,P) f32, final (B,H,P,N) f32)."""
+    """Chunked SSD scan. Returns (y (B,L,H,P) f32, final (B,H,P,N) f32).
+    Forward only: raises where autograd would record it (``refuse_grad``)."""
+    refuse_grad("ssd_scan", x, dA, Bm, Cm)
     if all(t.device.type == "cpu" for t in (x, dA, Bm, Cm)):
         return ssd_scan_ref(x, dA, Bm, Cm, chunk)
     return ssd_scan_cuda(x, dA, Bm, Cm, chunk)
@@ -44,6 +46,7 @@ def ssd_scan_cuda(x, dA, Bm, Cm, chunk: int = 256):
     which pass a (B,H,L) f32, the chunk states (B,H,L/chunk,P,N) f32 and
     the states entering each chunk (B,H,L/chunk,3,P,N) bf16 through
     scratch allocated here."""
+    refuse_grad("ssd_scan", x, dA, Bm, Cm)
     tensors = (x, dA, Bm, Cm)
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError("ssd_scan_cuda needs x, dA, Bm and Cm on one CUDA device")

@@ -1,28 +1,44 @@
 """Unified causal LM for the decoder-only families: dense / GQA attention,
 MoE FFN, Mamba2 (SSD) mixers and hybrid interleaves (Jamba).
 
-Port of ``repro/models/model.py``, serving side. Layer stacks are grouped
-into (prefix, periodic blocks) as in the reference: ``params["blocks"]``
-holds, for each position in the period, every group's leaves stacked on a
-leading dim, and the reference's ``lax.scan`` over groups is a loop that
-indexes them. The encoder-decoder path and the vision/audio frontends
-(seamless-m4t, internvl2) are not ported yet: they raise
-``NotImplementedError``. ``loss_fn`` and ``make_model`` come with LM
-training.
+Port of ``repro/models/model.py``. Layer stacks are grouped into (prefix,
+periodic blocks) as in the reference: ``params["blocks"]`` holds, for each
+position in the period, every group's leaves stacked on a leading dim, and
+the reference's ``lax.scan`` over groups is a loop over them; under
+``cfg.remat`` each group runs under activation checkpointing, as the
+reference's scan body does. The encoder-decoder path and the vision/audio
+frontends (seamless-m4t, internvl2) are not ported yet: they raise
+``NotImplementedError``.
+
+Training runs with the kernel flags off: the LM kernels are forward-only,
+here as in the reference, whose ``jax.grad`` cannot differentiate them.
+``make_model`` refuses a config with a flag on, and each kernel's wrapper
+raises where autograd would record it (``kernels.refuse_grad``).
 
 API:
     init(cfg, generator) -> params
     params_from_jax(np_params, device, dtype=None) -> params
+    loss_fn(cfg, params, batch) -> (loss, aux)           # training
+    make_model(cfg) -> TrainableModel over the flattened tree
     prefill(cfg, params, batch) -> last-position logits (B, 1, V)
     init_cache(cfg, batch, max_len, window, device) -> cache
     decode_step(cfg, params, cache, tokens) -> (logits (B, 1, V), cache)
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.protocol import TrainableModel
+from repro_torch.utils import tree as tu
 
 from . import layers as L
 from . import mamba2 as M
@@ -58,6 +74,21 @@ def _check_supported(cfg: ModelConfig) -> None:
         )
 
 
+KERNEL_FLAGS = ("use_flash_kernel", "use_ssd_kernel", "use_gmm_kernel")
+
+
+def refuse_kernel_flags(cfg) -> None:
+    """Training needs gradients through every layer, and the LM kernels have
+    none (``kernels.refuse_grad``): refuse a config that routes a layer
+    through one, naming the flag. Configs without the flags pass."""
+    on = [f for f in KERNEL_FLAGS if getattr(cfg, f, False)]
+    if on:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(on)} on, but the kernel has no backward (nor "
+            "has the reference's): LM training runs with the kernel flags off"
+        )
+
+
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
@@ -74,6 +105,38 @@ def _group(tree: dict, g: int) -> dict:
 def _stack(trees: list) -> dict:
     return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
             else torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def _unbind(tree: dict) -> list:
+    """Every group of a stacked subtree, each a tree of views. One
+    ``unbind`` per leaf: autograd stacks the groups' gradients once, where
+    indexing group by group would build a full-size gradient for each."""
+    parts = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[g] for k, v in parts.items()} for g in range(n)]
+
+
+# activation checkpointing: the matmul outputs that ``remat_policy="dots"``
+# keeps (the reference's ``dots_with_no_batch_dims_saveable``: an (M,K)x(K,N)
+# product, which is what a (B,S,D)x(D,F) projection folds into; bmm and its
+# batch dim, as in attention's einsums and the experts, are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, body):
+    """``body`` under the configured activation-checkpoint policy: 'full'
+    keeps only its inputs and recomputes the rest in the backward; 'dots'
+    also keeps the matmul outputs and recomputes only the elementwise
+    chains. Neither changes a number: the recomputation repeats the same
+    ops on the same inputs."""
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(checkpoint, body, use_reentrant=False, context_fn=context_fn)
+    return functools.partial(checkpoint, body, use_reentrant=False)
 
 
 # --------------------------------------------------------------------------
@@ -110,7 +173,7 @@ def apply_sublayers(
     params: dict,
     x: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill path: mixer -> ffn. Returns (x, aux)."""
+    """Train/prefill path: mixer -> ffn. Returns (x, aux)."""
     aux = torch.zeros((), device=x.device)
     if kind == "attn":
         x = L.attention_layer(
@@ -186,23 +249,32 @@ def params_from_jax(np_params, device, dtype=None):
 
 
 # --------------------------------------------------------------------------
-# prefill
+# forward (train / prefill trunk)
 # --------------------------------------------------------------------------
 
 
 def _trunk(cfg: ModelConfig, params: dict, x: torch.Tensor):
-    """Apply the prefix layers, then each group of the periodic blocks."""
+    """Apply the prefix layers, then each group of the periodic blocks, the
+    groups under activation checkpointing when ``cfg.remat`` is on and
+    autograd records (the prefix layers are not, as in the reference)."""
     pattern = layer_pattern(cfg)
     prefix, period = find_prefix_period(pattern)
     aux_total = torch.zeros((), device=x.device)
     for i in range(prefix):
         x, aux = apply_sublayers(cfg, *pattern[i], params["prefix"][i], x)
         aux_total = aux_total + aux
-    for g in range(_n_groups(cfg, prefix, period)):
+    blocks = [_unbind(params["blocks"][f"pos{j}"]) for j in range(period)]
+
+    def body(x, aux_acc, group):
         for j in range(period):
-            x, aux = apply_sublayers(cfg, *pattern[prefix + j],
-                                     _group(params["blocks"][f"pos{j}"], g), x)
-            aux_total = aux_total + aux
+            x, aux = apply_sublayers(cfg, *pattern[prefix + j], group[j], x)
+            aux_acc = aux_acc + aux
+        return x, aux_acc
+
+    if cfg.remat and torch.is_grad_enabled():
+        body = _remat(cfg, body)
+    for g in range(_n_groups(cfg, prefix, period)):
+        x, aux_total = body(x, aux_total, [blocks[j][g] for j in range(period)])
     return x, aux_total
 
 
@@ -221,6 +293,26 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.logits_softcap > 0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     return logits
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """Masked causal-LM cross entropy over f32 logits, for one model (no
+    replica dim): ``tokens``/``targets`` (B, S), ``sample_mask`` (B,).
+    Returns (loss + router_aux_coef * moe_aux, aux) with aux = accuracy,
+    n_valid (live samples), moe_aux and ce_loss."""
+    x, _ = _embed_inputs(cfg, params, batch)
+    x, moe_aux = _trunk(cfg, params, x)
+    logits = _logits(cfg, params, x)
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt = batch["targets"].long()
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]                       # (B, S)
+    smask = batch["sample_mask"].float()[:, None]
+    n_valid = smask.sum() * tgt.shape[1]
+    loss = (nll * smask).sum() / n_valid.clamp_min(1.0)
+    acc = ((logits.argmax(-1) == tgt) * smask).sum() / n_valid.clamp_min(1.0)
+    total = loss + cfg.router_aux_coef * moe_aux
+    return total, {"accuracy": acc, "n_valid": smask.sum(), "moe_aux": moe_aux,
+                   "ce_loss": loss}
 
 
 @torch.no_grad()
@@ -318,3 +410,36 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tenso
                                   _group(cache["blocks"][f"pos{j}"], g), cur, window)
     cache["cur_len"] = cur + 1
     return _logits(cfg, params, x), cache
+
+
+# --------------------------------------------------------------------------
+# trainer-protocol bundle
+# --------------------------------------------------------------------------
+
+
+def make_model(cfg: ModelConfig) -> TrainableModel:
+    """The LM as the trainer takes it: parameters as a flat dict keyed by
+    path (``utils.tree.flatten``), so the trainer, the SGD update and the
+    merge see one leaf per stacked tensor. ``loss_fn`` takes one model and
+    (B, S) batches, or replica-stacked (R, ...) leaves and (R, B, S)
+    batches and returns (R,) loss and aux: a loop over the replicas, each
+    on views of its leaves (the MoE dispatch's data-dependent sort and
+    ``index_put`` do not vectorize). No ``sparse_grad_fn``: the trainer
+    takes dense autograd, as the reference does for the LM. Refuses a
+    config with a kernel flag on (``refuse_kernel_flags``)."""
+    refuse_kernel_flags(cfg)
+
+    def init_flat(generator: torch.Generator) -> dict:
+        return tu.flatten(init(cfg, generator))
+
+    def flat_loss(flat: dict, batch: dict):
+        if batch["tokens"].ndim == 2:
+            return loss_fn(cfg, tu.unflatten(flat), batch)
+        views = {k: v.unbind(0) for k, v in flat.items()}
+        outs = [loss_fn(cfg, tu.unflatten({k: v[r] for k, v in views.items()}),
+                        {k: v[r] for k, v in batch.items()})
+                for r in range(batch["tokens"].shape[0])]
+        return (torch.stack([loss for loss, _ in outs]),
+                {k: torch.stack([aux[k] for _, aux in outs]) for k in outs[0][1]})
+
+    return TrainableModel(init=init_flat, loss_fn=flat_loss, config=cfg)

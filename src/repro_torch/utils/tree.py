@@ -2,6 +2,13 @@
 
 Port of the parts of ``repro/utils/tree.py`` the trainer calls. Replicated
 trees carry a leading replica dimension R on every leaf.
+
+The trainer, the SGD update, the merge and the non-finite guard take flat
+dicts (one level, leaf name -> tensor). A model whose parameters nest (the
+LM: a ``prefix`` list and ``blocks.pos{j}`` dicts) crosses that boundary
+through :func:`flatten` and :func:`unflatten`, which key each leaf by its
+dotted path (``"blocks.pos0.mixer.wq"``, ``"prefix.0.ffn.wi"``) in the
+tree's own order, so the leaves come in the same order on every call.
 """
 from __future__ import annotations
 
@@ -12,6 +19,43 @@ import torch
 
 def tree_map(fn: Callable, *trees: dict) -> dict:
     return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """A nested tree of dicts and lists -> {dotted path: leaf}, depth first
+    in the tree's own order. Empty dicts and lists hold no leaf and
+    vanish."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out: dict = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def unflatten(flat: dict):
+    """Inverse of :func:`flatten`: a level whose keys are all digits becomes
+    a list. The leaves are the flat dict's own tensors (no copy)."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        *parents, last = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
 
 
 def tree_size(a: dict) -> int:

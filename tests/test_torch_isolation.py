@@ -59,3 +59,13 @@ def test_serve_launcher_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama3.2-1b", "--reduced", "--gen", "1", "--context", "2"])
+
+
+def test_lm_train_launcher_without_device_needs_cuda(monkeypatch):
+    """The training launcher's LM workload (its default) runs on the card
+    unless asked for the CPU: without one it raises."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "tinyllama-1.1b", "--reduced", "--megabatches", "1"])

@@ -27,7 +27,9 @@ from repro_torch.models import model as MDL
 from repro_torch.models import moe as MOE
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["llama3.2-1b", "mamba2-780m", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b"]
+# every decoder-only architecture of the registry
+ARCHS = ["llama3.2-1b", "mamba2-780m", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
+         "tinyllama-1.1b", "stablelm-1.6b", "arctic-480b", "kimi-k2-1t-a32b"]
 FLAGS = dict(use_flash_kernel=True, use_ssd_kernel=True, use_gmm_kernel=True)
 
 
