@@ -102,9 +102,30 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    and one warm mega-batch under the profiler (top device ops, the
    device's busy share and the host's).
 
+10. elastic — the XML model at phase 5's width and data through
+   ``ElasticTrainer.run`` with a resize schedule (R 4 -> 6 before
+   mega-batch 2 -> 3 before 5), a ``FleetController`` firing every fault
+   kind (a NaN, a crash, a stall, a preemption, a join; the readmissions)
+   and a ``CheckpointManager`` every mega-batch in a temporary directory.
+   (a) Adaptive SGD, 8 mega-batches with evaluation: the fleet log, each
+   resize's, eviction's and guard repair's wall time, each checkpoint's
+   bytes, synchronous snapshot and background write, the peak device
+   memory of each mega-batch (R = 6's printed apart), and launch counts
+   derived from the records and the fleet log (``weighted_merge``: 4
+   leaves a barrier, resize, eviction, readmission, join and donor merge).
+   (b) A fresh trainer restores the checkpoint after mega-batch 4, with a
+   copy of the controller as it stood then (no checkpoint holds fleet
+   state), and finishes the run: host decisions and fleet log identical,
+   losses and global model within 1e-5 relative. (c) The same schedule
+   and faults on the dense-gradient path (``spmm_grad_w``), 4
+   mega-batches: host decisions equal (a)'s, launch counts checked. (d)
+   Phase 4's small width, the elastic run on the card against the CPU:
+   host decisions and fleet log identical, losses and model within 1e-5.
+
 Then one JSON line with every kernel's numbers (weighted_merge's from
 phase 3's f32 w2 leaf, with phase 9's full-width barrier under
-``lm_barrier``, per barrier, and its launches on both paths), and as
+``lm_barrier``, per barrier, and its launches on every path; spmm's and
+spmm_grad_w's launches on theirs, under ``launches_by_path``), and as
 the last line
 ``{"ok": true, "device": {...}}``. The data are synthetic, drawn from
 ``SEED``; the weights are random.
@@ -260,6 +281,56 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+# ---- one run against another (phases 4, 9a and 10) ----
+# the decisions the host makes from the virtual clock and the plan: equal
+# in two runs of one schedule, whatever the device and the sum orders
+HOST_KEYS = ("n_replicas", "u", "b", "lr", "alphas", "n_rounds", "virtual_time",
+             "pert_active", "guard_repaired")
+
+
+def check_host_decisions(label: str, recs: list, want_recs: list) -> None:
+    """Raise unless two runs' records hold the same host decisions."""
+    if len(recs) != len(want_recs):
+        raise RuntimeError(f"{label}: {len(recs)} mega-batches against {len(want_recs)}")
+    for a, b in zip(recs, want_recs):
+        for k in HOST_KEYS:
+            if a.get(k) != b.get(k):
+                raise RuntimeError(f"{label}: {k} differs at mega-batch {a['megabatch']}: "
+                                   f"{a.get(k)} vs {b.get(k)}")
+
+
+def rel_err(a, b) -> float:
+    """|a - b| / |b|; 0 where both are NaN, infinite where one is."""
+    if math.isnan(a) or math.isnan(b):
+        return 0.0 if math.isnan(a) and math.isnan(b) else math.inf
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def loss_err(recs: list, want_recs: list, keys=("train_loss", "test_loss")) -> float:
+    """The largest relative error of the records' losses."""
+    return max(rel_err(a[k], b[k]) for a, b in zip(recs, want_recs) for k in keys)
+
+
+def model_err(got: dict, want: dict) -> float:
+    """The model's error: leaf by leaf, max |got - want| over the leaf's
+    largest magnitude where that is below 1 (so never below the absolute
+    error); the largest over the leaves."""
+    return max(((got[k].float() - want[k].to(got[k].device).float()).abs().max()
+                / want[k].float().abs().max().clamp(1e-12, 1.0)).item() for k in want)
+
+
+def moved_err(got: dict, want: dict, base: dict) -> float:
+    """The error against how far training moved the model: leaf by leaf,
+    ||got - want|| / ||want - base|| (L2, in f64); the largest over the
+    leaves. ``base`` is the model the two runs started from."""
+    def norm(t):
+        return torch.linalg.vector_norm(t, dtype=torch.float64).item()
+
+    return max(norm(got[k].float() - want[k].float()) / max(norm(want[k].float()
+                                                                 - base[k].float()), 1e-300)
+               for k in want)
+
+
 def amazon_like_dataset(n_samples: int, n_features: int, n_classes: int, rng) -> dict:
     """The arrays of a full-width XML ``SparseDataset``, drawn in bulk.
 
@@ -324,7 +395,6 @@ def lm_training_phase(dev, reset_counts, read_counts) -> dict:
     from repro_torch.optim.sgd import sgd_update
 
     R = 4
-    exact = ("u", "b", "lr", "alphas", "n_rounds", "virtual_time", "pert_active")
 
     def lm_run(cfg, where, b_max, seq_len, mega_batch, lr, megabatches, verbose=False):
         prov = TokenProvider.make(cfg.vocab_size, seq_len, seed=SEED)
@@ -346,23 +416,17 @@ def lm_training_phase(dev, reset_counts, read_counts) -> dict:
         counts = read_counts()
         _, _, cpu_state, cpu_log = lm_run(cfg, "cpu", **LM_SMALL)
         recs = list(zip(card_log.records, cpu_log.records))
-        for a, b in recs:
-            for k in exact:
-                if a[k] != b[k]:
-                    raise RuntimeError(f"train {cfg.name}: {k} differs card vs CPU: "
-                                       f"{a[k]} vs {b[k]}")
-        loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
-                       for a, b in recs for k in ("train_loss", "test_loss"))
-        model_err = max((v.cpu().float() - cpu_state.global_model[k].float()).abs().max().item()
-                        for k, v in card_state.global_model.items())
+        check_host_decisions(f"train {cfg.name} card vs CPU", card_log.records, cpu_log.records)
+        l_err = loss_err(card_log.records, cpu_log.records)
+        m_err = model_err(card_state.global_model, cpu_state.global_model)
         want = {name: 0 for name in counts}
         want["weighted_merge"] = len(card_log.records) * len(card_state.global_model)
         print(f"train {cfg.name} card vs cpu: host decisions identical over {len(recs)} "
-              f"mega-batches (u {[a['u'] for a, _ in recs]}); loss rel err {loss_err:.3g}, "
-              f"global model max abs err {model_err:.3g} (tol {LM_CARD_CPU_TOL}); "
+              f"mega-batches (u {[a['u'] for a, _ in recs]}); loss rel err {l_err:.3g}, "
+              f"global model err {m_err:.3g} (tol {LM_CARD_CPU_TOL}); "
               f"weighted_merge launches {counts['weighted_merge']} "
               f"({len(card_state.global_model)} leaves x {len(recs)} barriers)")
-        if len(recs) != LM_SMALL["megabatches"] or max(loss_err, model_err) > LM_CARD_CPU_TOL:
+        if len(recs) != LM_SMALL["megabatches"] or max(l_err, m_err) > LM_CARD_CPU_TOL:
             raise RuntimeError(f"train {cfg.name}: card and CPU runs disagree beyond tolerance")
         if counts != want:
             raise RuntimeError(f"train {cfg.name}: launch counts {counts} != expected {want}")
@@ -512,6 +576,317 @@ def lm_training_phase(dev, reset_counts, read_counts) -> dict:
     torch.cuda.empty_cache()
     b["launches"] = launches
     return b
+
+
+# phase 10's settings: the elastic scenario of tests/torch_elastic_runs.py
+# at full XML width. R grows 4 -> 6 before mega-batch 2 and shrinks to 3
+# before 5; the faults fire on the population they name: a NaN in replica
+# 2 before mega-batch 1, a crash of replica 1 and a stall of replica 0
+# before 3, a preemption of replica 2 (one mega-batch of notice) before 4,
+# the readmissions and the stall's end before 5, a join before 6.
+ELASTIC_SCHEDULE = {0: 4, 2: 6, 5: 3}
+ELASTIC_FAULTS = "1:nan:2,3:crash:1,3:stall:0,4:preempt:2:1,6:join"
+ELASTIC_MB, ELASTIC_RESTORE_AT, ELASTIC_DENSE_MB = 8, 4, 4
+# the restored run against the uninterrupted one: the same f32 ops from the
+# same state but for index_add_ (the row-sparse SGD step's scatter of
+# duplicate rows adds in the order of the card's atomics); the small-width
+# run on the card against the CPU: f32 sums in other orders
+ELASTIC_TOL = 1e-5
+# the same runs' global models against how far training moved them
+# (``moved_err``): from the restore point in (b), from the initial weights
+# in (c). Each run also measures faulty readings that must exceed the
+# limit: (a)'s model one mega-batch behind, and in (b) a restore that
+# leaves the provider at the start of its stream. On an H100 the sound
+# readings were 1.9e-7 to 5.1e-7, but 4.0e-4 in (c) when one ReLU
+# pre-activation of the sparse run, within rounding of 0, took the other
+# side (index_add_'s order): one hidden unit's b1 and w1 column move by one
+# sample's update. The faulty readings were 0.35-0.41; the limit sits
+# between, a decade and more from each.
+ELASTIC_MOVED_TOL = 1e-2
+
+
+def merges_needed(records, events, schedule, r_start) -> int:
+    """Adaptive SGD's merges in a run, from its records and fleet log: one
+    a barrier, one a membership change that moved R (a scheduled resize to
+    another width, an eviction, a join or a readmission: each one resize's
+    final merge), one a guard repair that kept a finite replica (its donor
+    merge)."""
+    n, width = 0, r_start
+    for rec in records:
+        mb = rec["megabatch"] - 1
+        n += int(mb in schedule and schedule[mb] != width)
+        n += sum(1 for e in events if e["mb"] == mb and e["action"] in ("evict", "join", "rejoin"))
+        repaired = rec.get("guard_repaired")
+        n += 1 + int(bool(repaired) and len(repaired) < rec["n_replicas"])
+        width = rec["n_replicas"]
+    return n
+
+
+def elastic_phase(reset_counts, read_counts, full_model, full_provider, test_batches,
+                  small_model, small_provider, small_test) -> dict:
+    """Phase 10: elastic XML training at full width through
+    ``ElasticTrainer.run`` with a resize schedule, a ``FleetController``
+    and a ``CheckpointManager``. Returns the kernels' launches on its paths
+    (the uninterrupted run and the dense one)."""
+    import copy
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.core.fleet import FleetController, parse_fault_spec
+    from repro_torch.core.trainer import ElasticTrainer
+
+    B_MAX, R = 256, 4
+    membership = []          # (what, R before, R after, seconds)
+
+    def trainer(model, provider, where="cuda", sparse=True, b_max=B_MAX, mega_batch=20,
+                lr=0.05):
+        tr = ElasticTrainer(model(), provider(), ElasticConfig.from_bmax(
+            b_max, n_replicas=R, mega_batch=mega_batch), base_lr=lr, seed=SEED, device=where,
+            sparse_grads=sparse)
+        if where == "cuda":
+            timed(tr)
+        return tr
+
+    def timed(tr):
+        """Time each resize, eviction and guard repair (an eviction's own
+        resize is part of it)."""
+        inside = []
+
+        def wrap(what, fn):
+            def run(*args, **kw):
+                nested = bool(inside)
+                inside.append(what)
+                torch.cuda.synchronize()
+                r0, t0 = tr.cfg.n_replicas, time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    inside.pop()
+                    r1 = tr.cfg.n_replicas
+                    if not nested and (what != "resize" or r1 != r0):  # not a no-op
+                        membership.append((what, r0, r1, time.perf_counter() - t0))
+            return run
+
+        tr.resize = wrap("resize", tr.resize)
+        tr.remove_replicas = wrap("evict", tr.remove_replicas)
+        tr._repair_nonfinite = wrap("guard repair", tr._repair_nonfinite)
+
+    def controller():
+        return FleetController(injector=parse_fault_spec(ELASTIC_FAULTS), max_replicas=2 * R,
+                               verbose=True)
+
+    def check_counts(label, counts, want):
+        print(f"elastic {label} launches: {counts} (expected {want})")
+        if counts != want:
+            raise RuntimeError(f"elastic {label}: launch counts {counts} != expected {want}")
+
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        # ---- (a) the elastic run, a checkpoint every mega-batch ----
+        mgr = store.CheckpointManager(tmp, every=1, retain=ELASTIC_MB - ELASTIC_RESTORE_AT + 1)
+        fleet = controller()
+        fleet_at_restore, peaks = [], []
+        tr = trainer(full_model, full_provider)
+        # the global model after each mega-batch the checks below read
+        # (0: the initial weights)
+        models = {0: tr.init_state().global_model}
+
+        class Checkpoints:
+            """The manager, plus the controller as it stood at the restore
+            point (a checkpoint holds no fleet state, in either package),
+            the peak device memory of each mega-batch and the global models
+            ``models`` keeps."""
+
+            def maybe_save(self, trainer, state):
+                torch.cuda.synchronize()
+                peaks.append((trainer.cfg.n_replicas, torch.cuda.max_memory_allocated()))
+                torch.cuda.reset_peak_memory_stats()
+                mgr.maybe_save(trainer, state)
+                idx = state.megabatch_idx
+                if idx == ELASTIC_RESTORE_AT:
+                    fleet_at_restore.append(copy.deepcopy(fleet))
+                if idx in (ELASTIC_DENSE_MB - 1, ELASTIC_DENSE_MB, ELASTIC_RESTORE_AT,
+                           ELASTIC_MB - 1, ELASTIC_MB):
+                    models[idx] = {k: v.clone() for k, v in state.global_model.items()}
+
+            def wait(self):
+                mgr.wait()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, mlog = tr.run(ELASTIC_MB, test_batches=test_batches, verbose=True,
+                             resize_schedule=ELASTIC_SCHEDULE, fleet=fleet,
+                             checkpoint=Checkpoints())
+        torch.cuda.synchronize()
+        launches["elastic"] = read_counts()
+        prev = 0.0
+        for rec in mlog.records:
+            print(f"elastic mb={rec['megabatch']} R={rec['n_replicas']} u={rec['u']} "
+                  f"b={rec['b']} n_rounds={rec['n_rounds']} loss={rec['train_loss']:.6f} "
+                  f"test_loss={rec['test_loss']:.6f} guard={rec.get('guard_repaired', [])} "
+                  f"seconds={rec['wall_clock'] - prev:.3f}")
+            prev = rec["wall_clock"]
+        for e in fleet.events:
+            print(f"elastic fleet: {json.dumps(e)}")
+        for what, r0, r1, sec in membership:
+            print(f"elastic {what}: R {r0} -> {r1}, {sec * 1e3:.2f} ms wall")
+        for t in mgr.timings:
+            print(f"elastic checkpoint mb={t['megabatch']}: {t['bytes'] / 1e9:.3f} GB, "
+                  f"snapshot {t['snapshot_s']:.3f} s (synchronous), write {t['write_s']:.3f} s "
+                  f"(background)")
+        peak6 = max(p for r, p in peaks if r == 6) / 1e9
+        print(f"elastic peak device memory by mega-batch (R, GB): "
+              f"{[(r, round(p / 1e9, 2)) for r, p in peaks]}; at R = 6: {peak6:.2f} GB")
+        n_rounds = sum(r["n_rounds"] for r in mlog.records)
+        n_leaves = len(state.global_model)
+        want = {name: 0 for name in launches["elastic"]}
+        want.update(spmm=n_rounds + len(mlog.records) * len(test_batches),
+                    weighted_merge=n_leaves * merges_needed(
+                        mlog.records, fleet.events, ELASTIC_SCHEDULE, R))
+        check_counts("(a)", launches["elastic"], want)
+        actions = {e["action"] for e in fleet.events}
+        if not {"nan", "evict", "stall", "stall_recovered", "rejoin", "join"} <= actions:
+            raise RuntimeError(f"elastic: the fleet log misses a fault kind: {actions}")
+        if [r["n_replicas"] for r in mlog.records] != [4, 4, 6, 5, 4, 5, 6, 6]:
+            raise RuntimeError("elastic: the population did not follow the schedule and faults")
+        finite = [r["train_loss"] for r in mlog.records if "guard_repaired" not in r]
+        if not (all(np.isfinite(finite)) and all(np.isfinite(r["test_loss"])
+                                                 for r in mlog.records)):
+            raise RuntimeError("elastic: a non-finite loss outside the poisoned mega-batch")
+        if not all(torch.isfinite(v).all().item() for v in state.global_model.values()):
+            raise RuntimeError("elastic: the global model is not finite")
+
+        # ---- (b) a fresh trainer restores mega-batch 4's checkpoint ----
+        del tr, state
+        torch.cuda.empty_cache()
+        restore_s = []
+
+        def restored_run(stale_provider=False):
+            """A fresh trainer and a copy of the controller as they stood at
+            the restore point finish the run from its checkpoint;
+            ``stale_provider`` leaves the provider at the start of its
+            stream (a faulty restore, for the check's own reading)."""
+            tr_b = trainer(full_model, full_provider)
+            restore = tr_b.restore_checkpoint
+            if stale_provider:
+                tr_b.provider.load_state_dict = lambda sd: None
+
+            def timed_restore(path):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+                out = restore(path)
+                torch.cuda.synchronize()
+                restore_s.append((time.perf_counter() - t0,
+                                  torch.cuda.max_memory_allocated() - base))
+                return out
+
+            tr_b.restore_checkpoint = timed_restore
+            fleet_b = copy.deepcopy(fleet_at_restore[0])
+            fleet_b.verbose = False
+            t0 = time.perf_counter()
+            state_b, mlog_b = tr_b.run(ELASTIC_MB, test_batches=test_batches,
+                                       resize_schedule=ELASTIC_SCHEDULE, fleet=fleet_b,
+                                       restore_from=mgr.step_path(ELASTIC_RESTORE_AT))
+            torch.cuda.synchronize()
+            return state_b.global_model, mlog_b, fleet_b.events, time.perf_counter() - t0
+
+        model_b, mlog_b, events_b, wall_b = restored_run()
+        tail = mlog.records[ELASTIC_RESTORE_AT:]
+        if [r["megabatch"] for r in mlog_b.records] != [r["megabatch"] for r in tail]:
+            raise RuntimeError("elastic (b): the restored run did not resume after "
+                               f"mega-batch {ELASTIC_RESTORE_AT}")
+        check_host_decisions("elastic (b) restored vs uninterrupted", mlog_b.records, tail)
+        if events_b != fleet.events:
+            raise RuntimeError("elastic (b): the fleet log differs from the uninterrupted run's")
+        l_err = loss_err(mlog_b.records, tail)
+        m_err = model_err(model_b, models[ELASTIC_MB])
+        at, end = models[ELASTIC_RESTORE_AT], models[ELASTIC_MB]
+        moved = moved_err(model_b, end, at)
+        behind = moved_err(models[ELASTIC_MB - 1], end, at)
+        del model_b
+        model_stale = restored_run(stale_provider=True)[0]
+        stale = moved_err(model_stale, end, at)
+        del model_stale
+        torch.cuda.empty_cache()
+        print(f"elastic (b) restored after mega-batch {ELASTIC_RESTORE_AT} (restore "
+              f"{restore_s[0][0]:.3f} s, device memory {restore_s[0][1] / 1e9:.3f} GB at its "
+              f"peak, then {len(mlog_b.records)} mega-batches; "
+              f"{wall_b:.3f} s in all): host decisions "
+              f"and fleet log identical; loss rel err {l_err:.3g}, global model err "
+              f"{m_err:.3g} (tol {ELASTIC_TOL}; not bitwise: index_add_ in the "
+              f"row-sparse SGD step adds duplicate rows in the order of the card's atomics)")
+        print(f"elastic (b) global model against its movement since mega-batch "
+              f"{ELASTIC_RESTORE_AT}: restored {moved:.3g} (tol {ELASTIC_MOVED_TOL}); faulty "
+              f"readings: one mega-batch behind {behind:.3g}, a stale-provider restore "
+              f"{stale:.3g}")
+        if max(l_err, m_err) > ELASTIC_TOL or moved > ELASTIC_MOVED_TOL:
+            raise RuntimeError("elastic (b): the restored run left the uninterrupted trajectory")
+        if min(behind, stale) <= ELASTIC_MOVED_TOL:
+            raise RuntimeError("elastic (b): a faulty run passes the check")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- (c) the dense-gradient path (spmm_grad_w), same schedule and faults ----
+    tr_c = trainer(full_model, full_provider, sparse=False)
+    fleet_c = controller()
+    fleet_c.verbose = False
+    reset_counts()
+    state_c, mlog_c = tr_c.run(ELASTIC_DENSE_MB, resize_schedule=ELASTIC_SCHEDULE,
+                               fleet=fleet_c)
+    torch.cuda.synchronize()
+    launches["dense"] = read_counts()
+    dense_rounds = sum(r["n_rounds"] for r in mlog_c.records)
+    want = {name: 0 for name in launches["dense"]}
+    want.update(spmm=dense_rounds, spmm_grad_w=dense_rounds, sort_rows=dense_rounds,
+                weighted_merge=len(state_c.global_model) * merges_needed(
+                    mlog_c.records, fleet_c.events, ELASTIC_SCHEDULE, R))
+    sparse_recs = mlog.records[:ELASTIC_DENSE_MB]
+    check_host_decisions("elastic (c) dense vs sparse", mlog_c.records, sparse_recs)
+    dense_err = loss_err(mlog_c.records, sparse_recs, keys=("train_loss",))
+    init, want_c = models[0], models[ELASTIC_DENSE_MB]
+    m_err = model_err(state_c.global_model, want_c)
+    moved = moved_err(state_c.global_model, want_c, init)
+    behind = moved_err(models[ELASTIC_DENSE_MB - 1], want_c, init)
+    print(f"elastic (c) dense path, {ELASTIC_DENSE_MB} mega-batches ({dense_rounds} rounds): "
+          f"host decisions identical to (a)'s, train loss rel err {dense_err:.3g} (tol 1e-4), "
+          f"global model err {m_err:.3g}, against its movement from the initial weights "
+          f"{moved:.3g} (tol {ELASTIC_MOVED_TOL}; faulty reading: the sparse run one "
+          f"mega-batch behind {behind:.3g})")
+    check_counts("(c)", launches["dense"], want)
+    if (dense_err > 1e-4 or moved > ELASTIC_MOVED_TOL
+            or fleet_c.events != [e for e in fleet.events if e["mb"] < ELASTIC_DENSE_MB]):
+        raise RuntimeError("elastic (c): the dense path left the sparse one")
+    if behind <= ELASTIC_MOVED_TOL:
+        raise RuntimeError("elastic (c): a faulty run passes the check")
+    del tr_c, state_c, models
+    torch.cuda.empty_cache()
+
+    # ---- (d) small width, the card against the CPU ----
+    runs = []
+    for where in ("cuda", "cpu"):
+        tr_d = trainer(small_model, small_provider, where=where, b_max=32, mega_batch=10, lr=0.5)
+        fleet_d = controller()
+        fleet_d.verbose = False
+        state_d, mlog_d = tr_d.run(ELASTIC_MB, test_batches=small_test,
+                                   resize_schedule=ELASTIC_SCHEDULE, fleet=fleet_d)
+        runs.append((state_d, mlog_d, fleet_d.events))
+    (card_state, card_log, card_events), (cpu_state, cpu_log, cpu_events) = runs
+    check_host_decisions("elastic (d) card vs CPU", card_log.records, cpu_log.records)
+    l_err = loss_err(card_log.records, cpu_log.records)
+    m_err = model_err(card_state.global_model, cpu_state.global_model)
+    print(f"elastic (d) small width card vs cpu: host decisions and fleet log identical over "
+          f"{len(card_log.records)} mega-batches (R {[r['n_replicas'] for r in card_log.records]}"
+          f"); loss rel err {l_err:.3g}, global model err {m_err:.3g} "
+          f"(tol {ELASTIC_TOL})")
+    if card_events != cpu_events or max(l_err, m_err) > ELASTIC_TOL:
+        raise RuntimeError("elastic (d): card and CPU runs disagree")
+    return launches
 
 
 def main() -> int:
@@ -1081,20 +1456,15 @@ def main() -> int:
         label = f"{algo}/{engine}/{'sparse' if sparse else 'dense'}"
         (gpu_recs, gpu_model), (cpu_recs, cpu_model) = (
             small_run(where, algo, engine, sparse) for where in ("cuda", "cpu"))
-        for a, b in zip(gpu_recs, cpu_recs):
-            for k in ("u", "b", "lr", "alphas", "n_rounds", "virtual_time", "pert_active"):
-                if a[k] != b[k]:
-                    raise RuntimeError(f"slice {label}: {k} differs card vs CPU: "
-                                       f"{a[k]} vs {b[k]}")
+        check_host_decisions(f"slice {label} card vs CPU", gpu_recs, cpu_recs)
         # tolerance: f32 sums in other orders (kernels, cuBLAS, and
         # index_add_, whose CUDA atomics add in a nondeterministic order)
-        loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
-                       for a, b in zip(gpu_recs, cpu_recs) for k in ("train_loss", "test_loss"))
-        model_err = max((gpu_model[k] - cpu_model[k]).abs().max().item() for k in gpu_model)
+        l_err = loss_err(gpu_recs, cpu_recs)
+        m_err = model_err(gpu_model, cpu_model)
         print(f"slice {label} card vs cpu: host decisions identical over {len(gpu_recs)} "
-              f"mega-batches; loss rel err {loss_err:.3g} (tol 1e-4), global model max abs "
-              f"err {model_err:.3g} (tol 1e-4)")
-        if len(gpu_recs) != 2 or loss_err > 1e-4 or model_err > 1e-4:
+              f"mega-batches; loss rel err {l_err:.3g} (tol 1e-4), global model "
+              f"err {m_err:.3g} (tol 1e-4)")
+        if len(gpu_recs) != 2 or l_err > 1e-4 or m_err > 1e-4:
             raise RuntimeError(f"slice {label}: card and CPU runs disagree beyond tolerance")
 
     # ---- 5. the main path at full width ---------------------------------
@@ -1402,6 +1772,23 @@ def main() -> int:
     barrier = lm_training_phase(dev, reset_counts, read_counts)
     results["weighted_merge"]["lm_barrier"] = barrier
 
+    # ---- 10. elastic XML training at full width ---------------------------
+    def model_from(params, cfg):
+        base = make_model(cfg)
+        return TrainableModel(init=lambda generator: {k: v.clone() for k, v in params.items()},
+                              loss_fn=base.loss_fn, sparse_grad_fn=base.sparse_grad_fn,
+                              config=cfg)
+
+    elastic = elastic_phase(
+        reset_counts, read_counts,
+        full_model=lambda: model_from(p_full, cfg_full),
+        full_provider=lambda: SparseProvider.make(train, seed=SEED),
+        test_batches=test_batches,
+        small_model=lambda: model_from(p0, XMLMLPConfig(**small)),
+        small_provider=lambda: SparseProvider.make(strain, seed=SEED),
+        small_test=SparseProvider.make(strain, seed=SEED).test_batches(stest, 32),
+    )
+
     sources = {
         "spmm": ("src/repro_torch/csrc/spmm.cu", "src/repro/kernels/spmm/spmm.py:74"),
         "weighted_merge": ("src/repro_torch/csrc/weighted_merge.cu",
@@ -1415,15 +1802,26 @@ def main() -> int:
         "moe_ffn_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
                         "src/repro/kernels/moe_gmm/moe_gmm.py:59"),
     }
-    # launches: spmm on the XML main path (phase 5), spmm_grad_w on the
-    # dense-gradient path (phase 6), the LM kernels on the first flags-on
-    # prefill of each full-width model (phase 8), weighted_merge on the XML
-    # main path (phase 5) and in the full-width LM training run (phase 9)
+    # launches: spmm on the XML main path (phase 5) and the elastic runs
+    # (phase 10 a, c), spmm_grad_w on the dense-gradient paths (phases 6,
+    # 10 c), the LM kernels on the first flags-on prefill of each full-width
+    # model (phase 8), weighted_merge on the XML main path (phase 5), in the
+    # full-width LM training run (phase 9) and the elastic runs (phase 10)
     launches["spmm_grad_w"] = dense_launches["spmm_grad_w"]
     results["weighted_merge"]["launches_by_path"] = {
-        "xml_main": launches["weighted_merge"], "lm_train": barrier["launches"]}
-    launches["weighted_merge"] += barrier["launches"]
-    results["spmm_grad_w"]["sort"]["launches"] = dense_launches["sort_rows"]
+        "xml_main": launches["weighted_merge"], "lm_train": barrier["launches"],
+        "xml_elastic": elastic["elastic"]["weighted_merge"],
+        "xml_elastic_dense": elastic["dense"]["weighted_merge"]}
+    results["spmm"]["launches_by_path"] = {
+        "xml_main": launches["spmm"], "xml_elastic": elastic["elastic"]["spmm"],
+        "xml_elastic_dense": elastic["dense"]["spmm"]}
+    results["spmm_grad_w"]["launches_by_path"] = {
+        "xml_dense": launches["spmm_grad_w"],
+        "xml_elastic_dense": elastic["dense"]["spmm_grad_w"]}
+    for name in ("weighted_merge", "spmm", "spmm_grad_w"):
+        launches[name] = sum(results[name]["launches_by_path"].values())
+    results["spmm_grad_w"]["sort"]["launches"] = (dense_launches["sort_rows"]
+                                                 + elastic["dense"]["sort_rows"])
     launches.update(lm_launches)
     kernels = []
     for name, r in results.items():

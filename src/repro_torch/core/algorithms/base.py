@@ -19,6 +19,8 @@ inside every round):
   * ``adapt(state, plan, cfg)`` → ``(new_b, new_lr)``
   * ``merges_per_megabatch(plan)`` — merge costs charged to the clock
   * ``resolve_n_replicas(requested)`` — clamp the replica count
+  * ``resize_policy`` / ``resize_b(cfg, b, lr, base_lr)`` — what a
+    membership change keeps (``ElasticTrainer.resize``)
 """
 from __future__ import annotations
 
@@ -98,8 +100,19 @@ class Algorithm:
     #: registry key, set by @register
     name: str = "?"
 
+    #: membership-change contract, consumed by ``ElasticTrainer.resize``:
+    #:   'merge'    — default. Every current replica (leavers included)
+    #:                contributes a final normalized merge; the whole new
+    #:                population restarts from the merged global.
+    #:   'preserve' — the final merge still folds the leavers' updates into
+    #:                the global, but survivors keep their own (diverged)
+    #:                parameters; only joiners clone the merged global
+    #:                (CROSSBOW's independent learners).
+    resize_policy: str = "merge"
+
     # ---- state ----
     def init_state_extras(self, cfg, params) -> StateExtras:
+        """``params`` is None when ``resize_b`` sizes joiners."""
         # paper: initialize at b_max (Fig. 10a)
         return StateExtras(b=np.full(cfg.n_replicas, float(cfg.b_max)))
 
@@ -143,6 +156,28 @@ class Algorithm:
 
     def resolve_n_replicas(self, requested: int) -> int:
         return requested
+
+    # ---- membership change ----
+    def resize_b(self, cfg, b: np.ndarray, lr: np.ndarray, base_lr: float):
+        """Per-replica batch sizes / learning rates for the resized
+        population; ``cfg`` is the new config, ``b``/``lr`` the old arrays.
+
+        Default: survivors keep their adapted values (Algorithm 1 resumes
+        from them at the new R on the next ``adapt``); joiners start at the
+        algorithm's initial batch size (``init_state_extras(cfg, None)``)
+        with the linear-scaling learning rate. A shrink consults nothing.
+        """
+        new_R = cfg.n_replicas
+        keep = min(len(b), new_R)
+        new_b = np.empty(new_R, np.float64)
+        new_b[:keep] = np.asarray(b, np.float64)[:keep]
+        new_lr = np.empty(new_R, np.float64)
+        new_lr[:keep] = np.asarray(lr, np.float64)[:keep]
+        if new_R > keep:
+            init_b = np.asarray(self.init_state_extras(cfg, None).b, np.float64)
+            new_b[keep:] = init_b[keep:new_R]
+            new_lr[keep:] = base_lr * new_b[keep:] / cfg.b_max
+        return new_b, new_lr
 
 
 # --------------------------------------------------------------------------

@@ -26,6 +26,10 @@ def crossbow_correct(replicas, c: float):
 
 @register("crossbow")
 class Crossbow(Algorithm):
+    #: independent learners: a membership change keeps survivors' own
+    #: parameters; leavers fold into the center, joiners clone it
+    resize_policy = "preserve"
+
     def round_transforms(self, cfg):
         c = cfg.crossbow_correction
         return RoundTransforms(post_round=lambda reps: crossbow_correct(reps, c)[0])

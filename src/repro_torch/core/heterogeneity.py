@@ -1,7 +1,8 @@
 """Device heterogeneity model + virtual clock.
 
 Copied from ``repro/core/heterogeneity.py`` (``SpeedModel``, ``CostModel``,
-``VirtualClock``); the simulated speeds draw the same numpy random stream.
+``VirtualClock``, with their membership and checkpoint methods); the
+simulated speeds draw the same numpy random stream.
 
 The paper identifies two sources of heterogeneity (§1):
   1. intrinsic device variance — identical GPUs differ by up to 32% on the
@@ -64,6 +65,37 @@ class SpeedModel:
             self.factors /= self.factors.min()  # fastest pinned to 1.0
             self.factors = np.clip(self.factors, 1.0, 1.0 + 2 * self.max_gap)
 
+    def resize(self, new_R: int) -> None:
+        """Membership change: survivors keep their current factors, joiners
+        start at the homogeneous prior (1.0). After a shrink the surviving
+        factors are renormalized so the fastest is again 1.0."""
+        keep = min(self.n_replicas, new_R)
+        factors = np.ones(new_R)
+        factors[:keep] = self.factors[:keep]
+        self.factors = factors / factors.min()
+        self.n_replicas = new_R
+
+    def permute(self, perm) -> None:
+        """Reorder replica slots (targeted eviction moves the evicted slot
+        to the tail before a shrink). Pure relabeling: no renormalization."""
+        self.factors = self.factors[np.asarray(perm, np.int64)]
+
+    # ---- checkpointing ----
+    def state_dict(self) -> dict:
+        """Factor arrays (``arrays`` -> tensor store) plus the jitter/drift
+        RNG (``meta`` -> JSON metadata), so a restored run replays the same
+        simulated heterogeneity."""
+        return {
+            "arrays": {"factors": self.factors.copy()},
+            "meta": {"kind": "simulated",
+                     "rng": self._rng.bit_generator.state},
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.factors = np.asarray(sd["arrays"]["factors"], np.float64).copy()
+        self.n_replicas = len(self.factors)
+        self._rng.bit_generator.state = sd["meta"]["rng"]
+
 
 @dataclass
 class CostModel:
@@ -97,6 +129,20 @@ class VirtualClock:
 
     def earliest(self) -> int:
         return int(np.argmin(self.t))
+
+    def resize(self, new_R: int) -> None:
+        """Membership change: survivors keep their virtual timelines;
+        joiners enter at the latest survivor time (between mega-batches all
+        clocks sit at the barrier, so this is the barrier time)."""
+        keep = min(self.n_replicas, new_R)
+        t = np.full(new_R, float(self.t[:keep].max()) if keep else 0.0)
+        t[:keep] = self.t[:keep]
+        self.t = t
+        self.n_replicas = new_R
+
+    def permute(self, perm) -> None:
+        """Reorder replica timelines (targeted eviction)."""
+        self.t = self.t[np.asarray(perm, np.int64)]
 
     def advance(self, i: int, dt: float) -> None:
         self.t[i] += dt

@@ -2,7 +2,7 @@
 reformulated as *masked lockstep rounds*.
 
 Copied from ``repro/core/scheduler.py`` (``Dispatch``, ``MegaBatchPlan``,
-``DynamicScheduler``).
+``DynamicScheduler`` with its ``resize``).
 
 Paper (§3.1): batches are dispatched one-by-one to whichever GPU finishes
 first, until a mega-batch worth of samples has been consumed; the number of
@@ -72,6 +72,14 @@ class DynamicScheduler:
 
     def __post_init__(self):
         self.clock = VirtualClock(self.cfg.n_replicas)
+
+    def resize(self, cfg: ElasticConfig) -> None:
+        """Adopt a new replica count between mega-batches: the new config
+        and a clock of the new width (survivor timelines carry, joiners
+        enter at the barrier). The trainer resizes the speed model behind
+        ``cost`` first, so the next plan prices every replica."""
+        self.cfg = cfg
+        self.clock.resize(cfg.n_replicas)
 
     def plan_megabatch(
         self, b: np.ndarray, mega_samples: int, fetch_fn=None

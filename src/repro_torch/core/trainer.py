@@ -32,12 +32,27 @@ refuses them).
 ``train_round`` and ``merge_replicas`` are the round and the merge as
 plain functions; the engine and ``launch.steps`` both run them.
 
+Elastic membership and faults, as in the reference: ``resize`` changes the
+replica count between mega-batches (a final normalized merge folds every
+current replica in; survivors carry their state, joiners clone the merged
+global with zero momentum), ``remove_replicas`` evicts given slots (a
+crashed replica's rows are zeroed and its merge weight is 0), the
+non-finite guard heals poisoned replicas before the barrier, and
+``checkpoint_payload``/``restore_checkpoint`` write and read the
+reference's crash-consistent checkpoint format (``checkpoint.store``).
+``run`` drives them from a resize schedule, a ``core.fleet``
+``FleetController`` and a ``CheckpointManager``. Every merge among them
+goes through the ``weighted_merge`` kernel on the card. The reference's
+host-span (multi-process) and prefetch (overlap pipeline) branches of
+these methods are not ported.
+
 Device rule: ``device=None`` means CUDA and raises where there is none;
 the CPU runs only when asked for (``device="cpu"``), as the tests do. On
 the card the input layer and the merge run in the port's CUDA kernels.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -45,6 +60,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import adaptive_sgd as asgd
 from repro_torch.core import algorithms
@@ -73,6 +89,12 @@ class ElasticState:
 
 def _to_device(arrays: dict, device: torch.device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def _nested(tree: Optional[dict]) -> Optional[dict]:
+    """A flat parameter dict as the nested tree its dotted keys spell (the
+    layout checkpoints store, as the reference's pytrees do)."""
+    return None if tree is None else tu.unflatten(tree)
 
 
 def dense_value_and_grad(loss_fn, replicas: dict, batch: dict):
@@ -186,6 +208,161 @@ class ElasticTrainer:
         )
 
     # ------------------------------------------------------------------
+    # elastic membership: resize R between mega-batches
+    # ------------------------------------------------------------------
+    def resize(self, state: ElasticState, new_R: int) -> ElasticState:
+        """Change the replica count between mega-batches.
+
+        * **merge first** — every current replica (leavers included)
+          contributes a final normalized merge, weights ``b_i / sum(b)``
+          (Algorithm 2 line 3), through the ``weighted_merge`` kernel on
+          the card: leaving replicas' updates are never dropped.
+        * **carry state** — under ``resize_policy='merge'`` the new
+          population restarts from the merged global; under ``'preserve'``
+          (CROSSBOW) survivors keep their own parameters and joiners clone
+          the merged global. Survivors keep their momentum, joiners start
+          at zero. The global-momentum pair restarts (``prev_global :=
+          merged``). Batch sizes and lrs resize through ``algo.resize_b``.
+        * **re-plan** — ``_adopt_width``: config, speed factors (joiners at
+          1.0) and virtual clocks (joiners at the barrier time).
+
+        Survivors' rows are copied, never kept as views, so a shrink frees
+        the leavers' memory. The new global and prev_global hold the same
+        tensors: nothing writes a global in place (merges, the guard's
+        restart and checkpoints only read them). Resolves through
+        ``algo.resolve_n_replicas`` first (``single`` makes any schedule a
+        no-op). Treat the input state as consumed. The reference's re-shard (sharded placement; under vmap
+        the new tensors are already on the trainer's device) and prefetch
+        invalidation are not ported.
+        """
+        new_R = int(self.algo.resolve_n_replicas(int(new_R)))
+        R = self.cfg.n_replicas
+        if new_R == R:
+            return state
+        if new_R < 1:
+            raise ValueError(f"cannot resize to {new_R} replicas")
+
+        # ---- final normalized merge over the outgoing population ----
+        alphas = np.asarray(state.b, np.float64)
+        merged = asgd.normalized_merge(state.replicas, alphas / alphas.sum(), None, None, 0.0)
+
+        # ---- carry parameters / momentum to the new population ----
+        keep = min(R, new_R)
+
+        def grown(l, fill):
+            """(R, ...) leaf -> (new_R, ...): a copy of the survivors' rows,
+            then ``fill`` (one row) for every joiner."""
+            if new_R == keep:
+                return l[:keep].clone()
+            extra = fill.to(l.dtype).expand((new_R - keep,) + l.shape[1:])
+            return torch.cat([l[:keep], extra])
+
+        if self.algo.resize_policy == "preserve":
+            new_replicas = tu.tree_map(lambda l, g: grown(l, g.unsqueeze(0)),
+                                       state.replicas, merged)
+        else:  # 'merge': everyone restarts from the merged global
+            new_replicas = tu.tree_broadcast_replicas(merged, new_R)
+        new_momentum = None
+        if state.momentum is not None:
+            new_momentum = tu.tree_map(
+                lambda l: grown(l, l.new_zeros((1,) + l.shape[1:])), state.momentum
+            )
+        new_global = merged if state.global_model is not None else None
+        new_prev = merged if state.prev_global is not None else None
+
+        # ---- re-plan: config, batch plan, speeds, virtual clocks ----
+        new_cfg = dataclasses.replace(self.cfg, n_replicas=new_R)
+        new_b, new_lr = self.algo.resize_b(new_cfg, state.b, state.lr, self.base_lr)
+        self._adopt_width(new_R)
+        return ElasticState(
+            replicas=new_replicas,
+            global_model=new_global,
+            prev_global=new_prev,
+            momentum=new_momentum,
+            b=np.asarray(new_b, np.float64),
+            lr=np.asarray(new_lr, np.float64),
+            megabatch_idx=state.megabatch_idx,
+        )
+
+    def _adopt_width(self, new_R: int) -> None:
+        """Adopt a new replica count: config, speed model and scheduler.
+        The population-agnostic half of ``resize``, reused by
+        ``restore_checkpoint`` when the checkpointed width differs from the
+        trainer's construction width."""
+        self.cfg = dataclasses.replace(self.cfg, n_replicas=new_R)
+        self.speed.resize(new_R)
+        self.scheduler.resize(self.cfg)
+
+    def _place_state(self, replicas, momentum, global_model, prev_global):
+        """Move restored state trees to the trainer's device (the
+        reference's device_put onto the replica mesh; only the vmap
+        placement is ported, so this is a ``.to(device)``)."""
+        def put(tree):
+            return None if tree is None else tu.tree_map(lambda l: l.to(self.device), tree)
+
+        return put(replicas), put(momentum), put(global_model), put(prev_global)
+
+    def remove_replicas(self, state: ElasticState, indices,
+                        merge_leavers: bool = True) -> ElasticState:
+        """Evict specific replica slots between mega-batches.
+
+        ``resize`` only drops tail rows, so targeted eviction first permutes
+        survivors to the front (every per-replica array — state rows, b/lr,
+        speed factors, virtual clocks — moves with its replica), then
+        shrinks.
+
+        ``merge_leavers``: a preempted replica got notice, so its updates
+        fold into the final merge like any graceful leaver (True); a crashed
+        or poisoned replica is excluded — its rows are zeroed and its merge
+        weight set to 0, so the normalization redistributes b_i over the
+        survivors and a NaN never reaches the weighted sum (0 * NaN is NaN,
+        hence the zeroing). The reference's host-span branch is not ported.
+        """
+        R = self.cfg.n_replicas
+        drop = sorted({int(i) for i in indices})
+        if not drop:
+            return state
+        bad = [i for i in drop if i < 0 or i >= R]
+        if bad:
+            raise ValueError(f"replica indices {bad} out of range for R={R}")
+        if len(drop) >= R:
+            raise ValueError(f"cannot remove all {R} replicas (removal of {drop})")
+        survivors = [i for i in range(R) if i not in set(drop)]
+        perm = survivors + drop
+
+        if perm != list(range(R)):
+            index = torch.tensor(perm, device=self.device)
+            take = lambda l: l.index_select(0, index)  # noqa: E731
+            state = ElasticState(
+                replicas=tu.tree_map(take, state.replicas),
+                global_model=state.global_model,
+                prev_global=state.prev_global,
+                momentum=(
+                    tu.tree_map(take, state.momentum) if state.momentum is not None else None
+                ),
+                b=np.asarray(state.b, np.float64)[perm],
+                lr=np.asarray(state.lr, np.float64)[perm],
+                megabatch_idx=state.megabatch_idx,
+            )
+            self.speed.permute(perm)
+            self.scheduler.clock.permute(perm)
+
+        if not merge_leavers:
+            keep = R - len(drop)
+            mask = torch.arange(R, device=self.device) < keep
+            zero_tail = lambda l: torch.where(  # noqa: E731
+                mask.view((-1,) + (1,) * (l.ndim - 1)), l, torch.zeros((), dtype=l.dtype,
+                                                                       device=l.device)
+            )
+            b = np.asarray(state.b, np.float64).copy()
+            b[keep:] = 0.0
+            state = dataclasses.replace(
+                state, replicas=tu.tree_map(zero_tail, state.replicas), b=b
+            )
+
+        return self.resize(state, R - len(drop))
+
+    # ------------------------------------------------------------------
     # rounds
     # ------------------------------------------------------------------
     def _grads(self, replicas, batch):
@@ -278,7 +455,7 @@ class ElasticTrainer:
         replicas = tu.tree_map(lambda l: keep_rows(l, torch.zeros_like(l)), replicas)
         if finite.any():
             alphas = np.where(finite, np.asarray(state.b, np.float64), 0.0)
-            donor, _ = self.merge_models(replicas, alphas / alphas.sum(), None, None, 0.0)
+            donor = asgd.normalized_merge(replicas, alphas / alphas.sum(), None, None, 0.0)
         elif state.global_model is not None:
             donor = state.global_model
         else:
@@ -386,23 +563,200 @@ class ElasticTrainer:
             "loss": tot_loss / max(tot_n, 1.0),
         }
 
+    # ------------------------------------------------------------------
+    # crash-consistent checkpointing
+    # ------------------------------------------------------------------
+    def checkpoint_payload(self, state: ElasticState) -> tuple[dict, dict]:
+        """Everything a restored run needs to continue the exact
+        trajectory: ``(tensor_tree, json_metadata)`` for
+        ``checkpoint.store.save``, in the reference's layout. Tensors: the
+        model state (replicas, globals, momentum; a model's dotted leaf
+        keys become nested paths, so the store keys them as the reference
+        does), the per-replica b/lr, the virtual clocks and the speed
+        factors; metadata: the mega-batch index, width, algorithm, seed,
+        the speed model's RNG and the provider's stream cursor and RNG.
+        The tensors are the live ones: ``CheckpointManager`` copies them.
+        The reference's prefetch-snapshot and host-span branches are not
+        ported."""
+        speed_sd = self.speed.state_dict()
+        tree = {
+            "replicas": _nested(state.replicas),
+            "momentum": _nested(state.momentum),
+            "global_model": _nested(state.global_model),
+            "prev_global": _nested(state.prev_global),
+            "b": np.asarray(state.b, np.float64),
+            "lr": np.asarray(state.lr, np.float64),
+            "clock_t": np.asarray(self.scheduler.clock.t, np.float64),
+            "speed": speed_sd["arrays"],
+        }
+        metadata = {
+            "format": 1,
+            "megabatch_idx": int(state.megabatch_idx),
+            "n_replicas": int(self.cfg.n_replicas),
+            "algorithm": self.cfg.algorithm,
+            "seed": int(self.seed),
+            "has": {
+                "momentum": state.momentum is not None,
+                "global_model": state.global_model is not None,
+                "prev_global": state.prev_global is not None,
+            },
+            "speed_meta": speed_sd["meta"],
+        }
+        if hasattr(self.provider, "state_dict"):
+            metadata["provider"] = self.provider.state_dict()
+        return tree, metadata
+
+    def restore_checkpoint(self, path: str) -> ElasticState:
+        """Rebuild the full training state from a checkpoint written by
+        this trainer or by the reference's.
+
+        ``path`` is one checkpoint directory or a manager directory (the
+        newest complete checkpoint is taken). The trainer must be built
+        with the same model/algorithm/config family as the writer —
+        structural mismatches raise ``checkpoint.store.CheckpointError`` —
+        but its replica count may differ: the checkpointed width is
+        adopted (``_adopt_width``).
+        """
+        path = ckpt_store.resolve_checkpoint(path)
+        meta = ckpt_store.load_metadata(path)
+        if meta.get("algorithm") != self.cfg.algorithm:
+            raise ckpt_store.CheckpointError(
+                f"checkpoint {path} was written by algorithm {meta.get('algorithm')!r}; "
+                f"this trainer runs {self.cfg.algorithm!r}"
+            )
+        new_R = int(meta["n_replicas"])
+        if new_R != self.cfg.n_replicas:
+            self._adopt_width(new_R)
+        speed_sd = self.speed.state_dict()
+        ckpt_kind = meta.get("speed_meta", {}).get("kind")
+        if ckpt_kind != speed_sd["meta"]["kind"]:
+            raise ckpt_store.CheckpointError(
+                f"checkpoint {path} carries a {ckpt_kind!r} speed model; "
+                f"this trainer uses {speed_sd['meta']['kind']!r}"
+            )
+        has = meta.get("has", {})
+        if bool(has.get("momentum")) != (self.sgd.momentum != 0.0):
+            raise ckpt_store.CheckpointError(
+                f"checkpoint {path} {'has' if has.get('momentum') else 'lacks'} momentum "
+                "but this trainer's SGD config disagrees"
+            )
+        # shape and dtype template: one init on the CPU, held as meta
+        # tensors (no replicas on the device beside the loaded copy)
+        params = self.model.init(torch.Generator().manual_seed(self.seed))
+        params_like = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                       for k, v in params.items()}
+        del params
+        replicas_like = {k: v.expand((new_R,) + v.shape) for k, v in params_like.items()}
+        # global/prev presence follows the checkpoint, not init_state:
+        # algorithms without global copies publish one from their first
+        # barrier on
+        like = {
+            "replicas": _nested(replicas_like),
+            "momentum": _nested(replicas_like) if has.get("momentum") else None,
+            "global_model": _nested(params_like) if has.get("global_model") else None,
+            "prev_global": _nested(params_like) if has.get("prev_global") else None,
+            "b": np.zeros(new_R, np.float64),
+            "lr": np.zeros(new_R, np.float64),
+            "clock_t": np.zeros(new_R, np.float64),
+            "speed": speed_sd["arrays"],
+        }
+        tree, _ = ckpt_store.load(path, like)
+        self.scheduler.clock.t[:] = np.asarray(tree["clock_t"], np.float64)
+        self.speed.load_state_dict({"arrays": tree["speed"], "meta": meta["speed_meta"]})
+        if "provider" in meta and hasattr(self.provider, "load_state_dict"):
+            self.provider.load_state_dict(meta["provider"])
+
+        def flat(nested):
+            # the model's own leaf order (the per-replica norms sum in it)
+            if nested is None:
+                return None
+            leaves = tu.flatten(nested)
+            return {k: leaves[k] for k in params_like}
+
+        replicas, momentum, global_model, prev_global = self._place_state(
+            flat(tree["replicas"]), flat(tree["momentum"]),
+            flat(tree["global_model"]), flat(tree["prev_global"]),
+        )
+        return ElasticState(
+            replicas=replicas,
+            global_model=global_model,
+            prev_global=prev_global,
+            momentum=momentum,
+            b=np.asarray(tree["b"], np.float64),
+            lr=np.asarray(tree["lr"], np.float64),
+            megabatch_idx=int(meta["megabatch_idx"]),
+        )
+
+    def _validate_resize_schedule(self, resize_schedule: dict) -> dict[int, int]:
+        """Normalize + validate a resize schedule at launch: rejects
+        negative mega-batch indices, entries that collide after int
+        normalization (``{"3": 4, 3: 6}``), and replica targets below 1."""
+        out: dict[int, int] = {}
+        for raw_mb, raw_R in resize_schedule.items():
+            mb, target = int(raw_mb), int(raw_R)
+            if mb != float(raw_mb) or target != float(raw_R):
+                raise ValueError(
+                    f"resize schedule entry {raw_mb!r}: {raw_R!r} is not an integer pair"
+                )
+            if mb < 0:
+                raise ValueError(f"resize schedule has negative mega-batch index {mb}")
+            if mb in out:
+                raise ValueError(
+                    f"resize schedule defines mega-batch {mb} twice "
+                    "(duplicate after normalization)"
+                )
+            resolved = int(self.algo.resolve_n_replicas(target))
+            if resolved < 1:
+                raise ValueError(f"resize schedule targets {target} replicas at mega-batch {mb}")
+            out[mb] = target
+        return out
+
     def run(
         self,
         n_megabatches: int,
         test_batches: Optional[list] = None,
+        eval_every: int = 1,
         verbose: bool = False,
+        resize_schedule: Optional[dict[int, int]] = None,
+        fleet: Optional[Any] = None,
+        checkpoint: Optional[Any] = None,
+        restore_from: Optional[str] = None,
     ) -> tuple[ElasticState, MetricsLog]:
-        """Train ``n_megabatches`` mega-batches, evaluating the global model
-        on ``test_batches`` (when given) after each of them."""
-        state = self.init_state()
-        if verbose:
-            log("init", seconds=round(self.init_seconds, 3),
-                params=tu.tree_size(state.replicas) // self.cfg.n_replicas)
+        """Train up to mega-batch ``n_megabatches``, evaluating the global
+        model on ``test_batches`` (when given) every ``eval_every``
+        mega-batches.
+
+        ``resize_schedule`` maps a 0-based mega-batch index to the replica
+        count that takes effect before that mega-batch (``resize``; an
+        entry equal to the current R is a no-op). ``fleet`` — a
+        ``core.fleet.FleetController`` whose ``step(trainer, state, mb)``
+        runs at each boundary, after any scheduled resize. ``checkpoint`` —
+        a ``checkpoint.store.CheckpointManager``: ``maybe_save`` after
+        every mega-batch, the last write joined before returning.
+        ``restore_from`` — a checkpoint path (or manager directory) to
+        resume from instead of ``init_state``; training continues at the
+        checkpointed mega-batch index.
+        """
+        if resize_schedule is not None:
+            resize_schedule = self._validate_resize_schedule(resize_schedule)
+        if restore_from is not None:
+            state = self.restore_checkpoint(restore_from)
+        else:
+            state = self.init_state()
+            if verbose:
+                log("init", seconds=round(self.init_seconds, 3),
+                    params=tu.tree_size(state.replicas) // self.cfg.n_replicas)
         mlog = MetricsLog()
         t0 = time.perf_counter()
-        for mb in range(n_megabatches):
+        for mb in range(int(state.megabatch_idx), n_megabatches):
+            if resize_schedule is not None and mb in resize_schedule:
+                state = self.resize(state, resize_schedule[mb])
+            if fleet is not None:
+                state = fleet.step(self, state, mb)
             state, info = self.run_megabatch(state)
-            if test_batches is not None:
+            if checkpoint is not None:
+                checkpoint.maybe_save(self, state)
+            if test_batches is not None and (mb + 1) % eval_every == 0:
                 ev = self.evaluate(state.global_model, test_batches)
                 info.update(accuracy=ev["accuracy"], test_loss=ev["loss"])
             info["megabatch"] = mb + 1
@@ -418,4 +772,6 @@ class ElasticTrainer:
                     b=record["b"],
                     vt=round(record["virtual_time"], 3),
                 )
+        if checkpoint is not None:
+            checkpoint.wait()
         return state, mlog

@@ -1,6 +1,7 @@
 """Batch stream + mega-batch accounting.
 
-Copied from ``repro/data/batcher.py`` (``SampleStream``, ``SparseBatcher``,
+Copied from ``repro/data/batcher.py`` (``SampleStream`` and
+``SparseBatcher`` with their ``state_dict``/``load_state_dict``,
 ``stack_replica_batches``, ``stack_plan_grid``, ``stack_plan_batches``).
 
 The dynamic scheduler (core/scheduler.py) pulls variable-size batches from a
@@ -40,6 +41,23 @@ class SampleStream:
                 self.pos = 0
         return np.concatenate(out)
 
+    # ---- checkpointing ----
+    def state_dict(self) -> dict:
+        """Cursor position + RNG state, JSON-serializable: a restored run
+        replays the exact sample sequence the killed run would have."""
+        return {
+            "rng": self.rng.bit_generator.state,
+            "order": np.asarray(self.order).tolist(),
+            "pos": int(self.pos),
+            "epoch": int(self.epoch),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.rng.bit_generator.state = sd["rng"]
+        self.order = np.asarray(sd["order"], np.int64)
+        self.pos = int(sd["pos"])
+        self.epoch = int(sd["epoch"])
+
 
 class SparseBatcher:
     """Packs scheduler-chosen sample ids into padded COO batches."""
@@ -59,6 +77,12 @@ class SparseBatcher:
 
     def empty(self, b_slots: int) -> SparseBatch:
         return pack_batch(self.ds, np.zeros((0,), np.int64), b_slots, self.max_nnz, self.max_labels)
+
+    def state_dict(self) -> dict:
+        return {"stream": self.stream.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.stream.load_state_dict(sd["stream"])
 
 
 def _pad_pow2(x: int) -> int:

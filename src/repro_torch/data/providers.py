@@ -46,6 +46,12 @@ class SparseProvider:
     def stack(self, payloads: list[SparseBatch]) -> dict:
         return stack_replica_batches(payloads)
 
+    def state_dict(self) -> dict:
+        return self.batcher.state_dict()
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.batcher.load_state_dict(sd)
+
     def stack_plan(self, grid: list[list], b_slots: int) -> tuple[dict, np.ndarray]:
         """Whole-plan stack: (n_rounds, R, ...) arrays + (n_rounds, R) mask."""
         return stack_plan_batches(grid, self.empty(b_slots)), plan_update_mask(grid)

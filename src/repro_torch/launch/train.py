@@ -5,16 +5,27 @@ paper's 3-layer sparse MLP on synthetic XML data (``--workload xml``) or a
 decoder-only LM architecture on a synthetic token stream (``--workload
 lm``, the default, with ``--arch`` default tinyllama-1.1b), with the same
 flags, defaults and log lines as the reference (the subset this port
-supports: ``--engine``, ``--dense-grads``, ``--arch``, ``--reduced`` and
-``--seq-len`` included), plus ``--device`` (default ``cuda``; ``cpu`` runs
-the kernels' plain versions). The trainer logs one more line, ``init``,
-with the seconds the initial weights took.
+supports: ``--engine``, ``--dense-grads``, ``--arch``, ``--reduced``,
+``--seq-len``, and the elastic-membership, fault and checkpoint flags
+``--elastic-schedule``, ``--faults``, ``--min-replicas``,
+``--max-replicas``, ``--timeout-factor``, ``--checkpoint-dir``,
+``--checkpoint-every``, ``--checkpoint-retain`` and ``--restore-from``
+included), plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
+plain versions). The trainer logs one more line, ``init``, with the
+seconds the initial weights took.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
       --algorithm adaptive --replicas 4 --megabatches 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
       --reduced --algorithm adaptive --megabatches 5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
+      --algorithm adaptive --megabatches 30 --elastic-schedule "0:4,10:6,20:3" \
+      --faults "seed=7,p_crash=0.05,3:nan:0,5:join" \
+      --checkpoint-dir ckpt/run1 --checkpoint-every 5
+  PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
+      --algorithm adaptive --megabatches 30 \
+      --checkpoint-dir ckpt/run1 --restore-from ckpt/run1
 """
 from __future__ import annotations
 
@@ -22,9 +33,11 @@ import argparse
 import json
 import os
 
+from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.configs.archs import ARCHS
 from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import algorithms
+from repro_torch.core.fleet import FleetController, parse_fault_spec
 from repro_torch.core.heterogeneity import SpeedModel
 from repro_torch.core.trainer import ENGINES, ElasticTrainer
 from repro_torch.data.providers import SparseProvider, TokenProvider
@@ -33,6 +46,37 @@ from repro_torch.data.xml_synth import make_xml_dataset
 from repro_torch.models import model as MDL
 from repro_torch.models.xml_mlp import XMLMLPConfig, make_model as make_xml_model
 from repro_torch.utils.logging import log
+
+
+def parse_elastic_schedule(spec: str) -> dict[int, int]:
+    """``"0:4,20:6,40:3"`` -> ``{0: 4, 20: 6, 40: 3}``.
+
+    Keys are 0-based mega-batch indices; values the replica count that
+    takes effect before that mega-batch. Entries may come in any order;
+    duplicates keep the last occurrence.
+    """
+    out: dict[int, int] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            mb_str, r_str = part.split(":")
+            mb, r = int(mb_str), int(r_str)
+        except ValueError:
+            raise ValueError(
+                f"bad --elastic-schedule entry {part!r}; expected"
+                " 'megabatch:replicas' (e.g. '0:4,20:6,40:3')"
+            ) from None
+        if mb < 0 or r < 1:
+            raise ValueError(
+                f"bad --elastic-schedule entry {part!r}: mega-batch index"
+                " must be >= 0 and replica count >= 1"
+            )
+        out[mb] = r
+    if not out:
+        raise ValueError("--elastic-schedule is empty")
+    return out
 
 
 def build_xml_workload(args):
@@ -79,6 +123,36 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on; 'cpu' runs the kernels' plain versions")
     ap.add_argument("--replicas", type=int, default=4)
+    ap.add_argument("--elastic-schedule", default="",
+                    help="'megabatch:R' list, e.g. '0:4,20:6,40:3': resize"
+                         " the replica population at those mega-batch"
+                         " boundaries. An entry at 0 overrides --replicas")
+    ap.add_argument("--faults", default="",
+                    help="fault-injection spec: comma list of injector rates"
+                         " (seed=7,p_crash=0.02,...) and scripted events"
+                         " 'MB:kind[:replica[:duration]]' with kind in"
+                         " crash|preempt|join|stall|nan, e.g."
+                         " 'seed=7,3:crash:1,5:join,7:nan:0'. Runs the"
+                         " trainer under a FleetController")
+    ap.add_argument("--min-replicas", type=int, default=1,
+                    help="fleet floor: evictions never shrink below this")
+    ap.add_argument("--max-replicas", type=int, default=0,
+                    help="fleet ceiling for joins/readmissions (0 = 2x the"
+                         " initial replica count)")
+    ap.add_argument("--timeout-factor", type=float, default=0.0,
+                    help="health detector: evict a replica whose relative"
+                         " speed exceeds this multiple of the population"
+                         " median (0 disables)")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="enable crash-consistent async checkpointing into"
+                         " this directory (atomic publish, bounded retention)")
+    ap.add_argument("--checkpoint-every", type=int, default=5,
+                    help="mega-batches between checkpoints")
+    ap.add_argument("--checkpoint-retain", type=int, default=3,
+                    help="published checkpoints kept on disk")
+    ap.add_argument("--restore-from", default="",
+                    help="resume from this checkpoint (a ckpt-* directory, or"
+                         " a checkpoint dir: the newest complete checkpoint)")
     ap.add_argument("--megabatches", type=int, default=10)
     ap.add_argument("--mega-batch", type=int, default=20,
                     help="batches per mega-batch (paper default 100)")
@@ -105,6 +179,13 @@ def main(argv=None):
         model, provider, test_batches = build_xml_workload(args)
     else:
         model, provider, test_batches = build_lm_workload(args)
+    schedule = None
+    if args.elastic_schedule:
+        schedule = parse_elastic_schedule(args.elastic_schedule)
+        if 0 in schedule:
+            args.replicas = schedule[0]  # initial membership
+        log("elastic schedule", events={mb: schedule[mb] for mb in sorted(schedule)})
+
     ecfg = ElasticConfig.from_bmax(
         args.b_max,
         algorithm=args.algorithm,
@@ -117,12 +198,31 @@ def main(argv=None):
         base_lr=args.lr, speed=speed, seed=args.seed,
         device=args.device, engine=args.engine, sparse_grads=not args.dense_grads,
     )
-    state, mlog = trainer.run(args.megabatches, test_batches=test_batches, verbose=True)
+    fleet = None
+    if args.faults or args.timeout_factor > 0:
+        fleet = FleetController(
+            injector=parse_fault_spec(args.faults) if args.faults else None,
+            min_replicas=args.min_replicas,
+            max_replicas=args.max_replicas or 2 * ecfg.n_replicas,
+            timeout_factor=args.timeout_factor,
+            verbose=True,
+        )
+    manager = None
+    if args.checkpoint_dir:
+        manager = CheckpointManager(args.checkpoint_dir, every=args.checkpoint_every,
+                                    retain=args.checkpoint_retain)
+    state, mlog = trainer.run(
+        args.megabatches, test_batches=test_batches, verbose=True,
+        resize_schedule=schedule, fleet=fleet, checkpoint=manager,
+        restore_from=args.restore_from or None,
+    )
     final = mlog.records[-1] if mlog.records else {}
     log("final",
         algorithm=args.algorithm,
         accuracy=round(final.get("accuracy", float("nan")), 4),
         virtual_time=round(final.get("virtual_time", float("nan")), 3))
+    if fleet is not None:
+        log("fleet", events=len(fleet.events), replicas=trainer.cfg.n_replicas)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

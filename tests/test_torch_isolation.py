@@ -1,6 +1,7 @@
-"""The port stands alone: importing every module of ``repro_torch`` loads
-neither JAX nor any module of the reference package, builds no kernel, and
-the trainer refuses to fall back to the CPU when no card is present."""
+"""The port stands alone: importing every module of ``repro_torch`` (the
+checkpoint store and the fleet controller among them) loads neither JAX
+nor any module of the reference package, builds no kernel, and the
+trainer refuses to fall back to the CPU when no card is present."""
 from __future__ import annotations
 
 import os
@@ -24,8 +25,13 @@ bad = sorted(m for m in sys.modules
 from repro_torch.kernels import _build
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 print(_build.library.cache_info().currsize)
 """
+
+# the elastic-membership modules, each imported by the walk above
+ELASTIC_MODULES = ("repro_torch.checkpoint.store", "repro_torch.core.fleet",
+                   "repro_torch.core.trainer", "repro_torch.launch.train")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -34,8 +40,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         [sys.executable, "-c", _PROBE], env=env, capture_output=True, text=True,
         timeout=120, check=True,
     ).stdout.splitlines()
-    n_modules, bad, n_loaded = int(out[0]), out[1], int(out[2])
+    n_modules, bad, names, n_loaded = int(out[0]), out[1], out[2].split(","), int(out[3])
     assert n_modules >= 25, n_modules   # the walk really saw the package
+    for module in ELASTIC_MODULES:
+        assert module in names, module
     assert bad == "", f"the port imported {bad}"
     assert n_loaded == 0                # nothing was built or loaded
 
@@ -59,6 +67,31 @@ def test_serve_launcher_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama3.2-1b", "--reduced", "--gen", "1", "--context", "2"])
+
+
+@pytest.mark.parametrize("module", ELASTIC_MODULES)
+def test_elastic_module_alone_loads_no_jax_and_no_reference(module):
+    """Each elastic-membership module imported on its own, in a fresh
+    interpreter: nothing of JAX or of the reference comes in with it."""
+    probe = (f"import sys, {module}\n"
+             "print(','.join(sorted(m for m in sys.modules if m == 'jax' or m == 'repro'"
+             " or m.startswith(('jax.', 'jaxlib', 'repro.')))))")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", probe], env=env, capture_output=True,
+                         text=True, timeout=120, check=True).stdout.strip()
+    assert out == "", f"{module} imported {out}"
+
+
+def test_launcher_without_device_needs_cuda_with_elastic_flags(monkeypatch, tmp_path):
+    """The elastic flags change nothing of the device rule: the card, or
+    an error."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--workload", "xml", "--samples", "64", "--features", "256", "--avg-nnz", "16",
+                    "--classes", "8", "--megabatches", "1", "--elastic-schedule", "0:2,1:3",
+                    "--faults", "0:join", "--checkpoint-dir", str(tmp_path)])
 
 
 def test_lm_train_launcher_without_device_needs_cuda(monkeypatch):
