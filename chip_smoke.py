@@ -121,11 +121,26 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    mega-batches: host decisions equal (a)'s, launch counts checked. (d)
    Phase 4's small width, the elastic run on the card against the CPU:
    host decisions and fleet log identical, losses and model within 1e-5.
+11. overlap — the overlapped mega-batch pipeline (the trainer's default
+   since phase 4; phase 10's checkpoints are taken while a mega-batch is
+   staged, and (b) replays it) against the sequential path: phase 5's
+   width and data, Adaptive SGD, R = 4, 4 mega-batches with evaluation
+   after each through ``ElasticTrainer.run`` with ``overlap=False`` and
+   then ``overlap=True`` from the same weights and seed. Host decisions
+   identical, losses, accuracies and the global model within 1e-5
+   relative; launch counts what the plans need; every dispatch-to-collect
+   window run under ``torch.cuda.set_sync_debug_mode("error")`` (a host
+   sync inside it raises); no staging slot allocated after the second
+   mega-batch. Prints, both ways: the warm mega-batch wall time (median of
+   mega-batches 2-4), the device busy share over one more warm mega-batch
+   under the profiler, the host's staging time (plan, pack, upload) and
+   bytes a mega-batch, and peak device memory.
 
 Then one JSON line with every kernel's numbers (weighted_merge's from
 phase 3's f32 w2 leaf, with phase 9's full-width barrier under
 ``lm_barrier``, per barrier, and its launches on every path; spmm's and
-spmm_grad_w's launches on theirs, under ``launches_by_path``), and as
+spmm_grad_w's launches on theirs, under ``launches_by_path``; phase 11's
+runs among them), and as
 the last line
 ``{"ok": true, "device": {...}}``. The data are synthetic, drawn from
 ``SEED``; the weights are random.
@@ -887,6 +902,152 @@ def elastic_phase(reset_counts, read_counts, full_model, full_provider, test_bat
     if card_events != cpu_events or max(l_err, m_err) > ELASTIC_TOL:
         raise RuntimeError("elastic (d): card and CPU runs disagree")
     return launches
+
+
+# phase 11's settings: phase 5's model and data, Adaptive SGD, R = 4, 4
+# mega-batches with evaluation after each, through ``ElasticTrainer.run``
+# with the overlap pipeline off and then on, from the same weights and seed.
+# The two runs differ on the card only in index_add_'s order (the row-sparse
+# SGD step's scatter of duplicate rows), as phase 10 (b)'s restored run
+# differs from the uninterrupted one, and are held to its limit.
+OVERLAP_MB = 4
+OVERLAP_TOL = 1e-5
+
+
+def overlap_phase(reset_counts, read_counts, full_model, full_provider, test_batches,
+                  card: str) -> dict:
+    """Phase 11: the overlapped mega-batch pipeline against the sequential
+    path at full XML width, on ``card`` (nvidia-smi's name and power
+    limit). Returns each run's kernel launches."""
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.core.trainer import ElasticTrainer
+
+    B_MAX, R = 256, 4
+    runs = {}
+    for overlap in (False, True):
+        label = "on" if overlap else "off"
+        tr = ElasticTrainer(full_model(), full_provider(), ElasticConfig.from_bmax(
+            B_MAX, n_replicas=R, mega_batch=20), base_lr=0.05, seed=SEED, device="cuda",
+            overlap=overlap)
+        allocations = []     # staging-slot allocations after each mega-batch
+
+        class Probe:
+            """The run's checkpoint hook, called after each mega-batch."""
+
+            def maybe_save(self, trainer, state):
+                allocations.append(trainer._staging.allocations)
+
+            def wait(self):
+                pass
+
+        # every dispatch-to-collect window runs under the sync debug mode
+        # "error": a host sync inside it (a blocking copy, .item(), a
+        # pageable upload) raises
+        windows = []
+        if overlap:
+            dispatch, finish = tr._dispatch_rounds, tr._finish_metrics
+
+            def guarded_dispatch(*args, **kw):
+                torch.cuda.set_sync_debug_mode("error")
+                return dispatch(*args, **kw)
+
+            def guarded_finish(stats):
+                torch.cuda.set_sync_debug_mode(0)
+                windows.append(1)
+                return finish(stats)
+
+            tr._dispatch_rounds, tr._finish_metrics = guarded_dispatch, guarded_finish
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            state, mlog = tr.run(OVERLAP_MB, test_batches=test_batches, checkpoint=Probe())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        model = {k: v.clone() for k, v in state.global_model.items()}
+        peak = torch.cuda.max_memory_allocated()
+        staging = list(tr.staging_log)
+        walls = [b["wall_clock"] - a["wall_clock"]
+                 for a, b in zip(mlog.records, mlog.records[1:])]
+        n_rounds = sum(r["n_rounds"] for r in mlog.records)
+        want = {name: 0 for name in launches}
+        want.update(spmm=n_rounds + len(mlog.records) * len(test_batches),
+                    weighted_merge=len(state.global_model) * len(mlog.records))
+        print(f"overlap {label} launches: {launches} (expected {want})")
+        if launches != want:
+            raise RuntimeError(f"overlap {label}: launch counts {launches} != expected {want}")
+        if overlap and len(windows) != OVERLAP_MB:
+            raise RuntimeError(f"overlap: {len(windows)} guarded windows for {OVERLAP_MB} "
+                               "mega-batches")
+
+        # one warm mega-batch more under the profiler: with the pipeline on,
+        # its plan was staged by the one before, and it stages the next
+        state, _ = tr.run_megabatch(state, prefetch=overlap)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, info = tr.run_megabatch(state, prefetch=overlap)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        busy = sum(device_us(e) for e in prof.key_averages()) / 1e6
+        tr.invalidate_prefetch()
+
+        for rec, wall in zip(mlog.records, [mlog.records[0]["wall_clock"]] + walls):
+            print(f"overlap {label} mb={rec['megabatch']} u={rec['u']} "
+                  f"n_rounds={rec['n_rounds']} loss={rec['train_loss']:.6f} "
+                  f"test_loss={rec['test_loss']:.6f} acc={rec['accuracy']:.4f} "
+                  f"seconds={wall:.4f}")
+        for e in staging[:OVERLAP_MB]:
+            print(f"overlap {label} staging mb={e['megabatch'] + 1}: plan "
+                  f"{e['plan_s'] * 1e3:.2f} ms, pack {e['pack_s'] * 1e3:.2f} ms, upload "
+                  f"{e['upload_s'] * 1e3:.2f} ms (host), {e['bytes'] / 1e6:.2f} MB")
+        runs[label] = dict(records=mlog.records, model=model, launches=launches, walls=walls,
+                           peak=peak, staging=staging[:OVERLAP_MB], allocations=allocations,
+                           busy=busy, prof_wall=prof_wall, prof_rounds=info["n_rounds"])
+        del tr, state
+        torch.cuda.empty_cache()
+
+    off, on = runs["off"], runs["on"]
+    check_host_decisions("overlap on vs off", on["records"], off["records"])
+    l_err = loss_err(on["records"], off["records"],
+                     keys=("train_loss", "train_accuracy", "test_loss", "accuracy"))
+    m_err = model_err(on["model"], off["model"])
+    print(f"overlap on vs off: host decisions identical over {OVERLAP_MB} mega-batches; "
+          f"loss and accuracy rel err {l_err:.3g}, global model err {m_err:.3g} "
+          f"(tol {OVERLAP_TOL}; not bitwise: index_add_'s order)")
+    if max(l_err, m_err) > OVERLAP_TOL:
+        raise RuntimeError("overlap: the pipelined run left the sequential one")
+    allocs = on["allocations"]
+    print(f"overlap staging slots allocated after each mega-batch: {allocs}")
+    if allocs[1] != allocs[-1] or off["allocations"][-1] != 0:
+        raise RuntimeError(f"overlap: a staging slot was allocated after the second "
+                           f"mega-batch ({allocs})")
+
+    print(f"overlap measured on: {card}")
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2] if len(xs) % 2 else (xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
+
+    for label, run in runs.items():
+        warm = run["staging"][1:]
+        print(f"overlap {label}: warm mega-batch {median(run['walls']):.4f} s wall (median "
+              f"of mega-batches 2-{OVERLAP_MB}, evaluation included: {run['walls']}); "
+              f"profiled mega-batch ({run['prof_rounds']} rounds) {run['prof_wall']:.4f} s, "
+              f"device busy {run['busy']:.4f} s ({run['busy'] / run['prof_wall']:.1%}); "
+              f"staging (host, median of mega-batches 2-{OVERLAP_MB}): plan "
+              f"{median([e['plan_s'] for e in warm]) * 1e3:.2f} ms, pack "
+              f"{median([e['pack_s'] for e in warm]) * 1e3:.2f} ms, upload "
+              f"{median([e['upload_s'] for e in warm]) * 1e3:.2f} ms, "
+              f"{median([e['bytes'] for e in warm]) / 1e6:.2f} MB a mega-batch; "
+              f"peak device memory {run['peak'] / 1e9:.2f} GB")
+    return {label: run["launches"] for label, run in runs.items()}
+
+
+    return runs
 
 
 def main() -> int:
@@ -1789,6 +1950,14 @@ def main() -> int:
         small_test=SparseProvider.make(strain, seed=SEED).test_batches(stest, 32),
     )
 
+    # ---- 11. the overlap pipeline at full width ---------------------------
+    overlap = overlap_phase(
+        reset_counts, read_counts,
+        full_model=lambda: model_from(p_full, cfg_full),
+        full_provider=lambda: SparseProvider.make(train, seed=SEED),
+        test_batches=test_batches, card=smi,
+    )
+
     sources = {
         "spmm": ("src/repro_torch/csrc/spmm.cu", "src/repro/kernels/spmm/spmm.py:74"),
         "weighted_merge": ("src/repro_torch/csrc/weighted_merge.cu",
@@ -1806,15 +1975,20 @@ def main() -> int:
     # (phase 10 a, c), spmm_grad_w on the dense-gradient paths (phases 6,
     # 10 c), the LM kernels on the first flags-on prefill of each full-width
     # model (phase 8), weighted_merge on the XML main path (phase 5), in the
-    # full-width LM training run (phase 9) and the elastic runs (phase 10)
+    # full-width LM training run (phase 9) and the elastic runs (phase 10);
+    # spmm and weighted_merge in the overlap pipeline's runs, off and on
+    # (phase 11)
     launches["spmm_grad_w"] = dense_launches["spmm_grad_w"]
     results["weighted_merge"]["launches_by_path"] = {
         "xml_main": launches["weighted_merge"], "lm_train": barrier["launches"],
         "xml_elastic": elastic["elastic"]["weighted_merge"],
-        "xml_elastic_dense": elastic["dense"]["weighted_merge"]}
+        "xml_elastic_dense": elastic["dense"]["weighted_merge"],
+        "xml_overlap_off": overlap["off"]["weighted_merge"],
+        "xml_overlap_on": overlap["on"]["weighted_merge"]}
     results["spmm"]["launches_by_path"] = {
         "xml_main": launches["spmm"], "xml_elastic": elastic["elastic"]["spmm"],
-        "xml_elastic_dense": elastic["dense"]["spmm"]}
+        "xml_elastic_dense": elastic["dense"]["spmm"],
+        "xml_overlap_off": overlap["off"]["spmm"], "xml_overlap_on": overlap["on"]["spmm"]}
     results["spmm_grad_w"]["launches_by_path"] = {
         "xml_dense": launches["spmm_grad_w"],
         "xml_elastic_dense": elastic["dense"]["spmm_grad_w"]}

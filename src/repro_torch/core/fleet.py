@@ -198,6 +198,8 @@ class FleetController:
         for slot, (expire, mult) in sorted(self._stalls.items()):
             if mb >= expire:
                 if slot < trainer.cfg.n_replicas and isinstance(trainer.speed, SpeedModel):
+                    # a prefetched plan was costed with the stalled factor
+                    trainer.invalidate_prefetch()
                     trainer.speed.factors[slot] /= mult
                 del self._stalls[slot]
                 self._log(mb, "stall_recovered", slot)
@@ -260,6 +262,9 @@ class FleetController:
 
         if ev.kind == "stall":
             if isinstance(trainer.speed, SpeedModel) and slot not in self._stalls:
+                # a prefetched plan was costed before the stall: revoke it
+                # so the next plan sees the stalled factor
+                trainer.invalidate_prefetch()
                 trainer.speed.factors[slot] *= ev.severity
                 self._stalls[slot] = [mb + ev.duration, ev.severity]
                 self._log(mb, "stall", slot, duration=ev.duration, severity=ev.severity)

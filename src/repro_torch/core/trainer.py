@@ -43,8 +43,25 @@ reference's crash-consistent checkpoint format (``checkpoint.store``).
 ``run`` drives them from a resize schedule, a ``core.fleet``
 ``FleetController`` and a ``CheckpointManager``. Every merge among them
 goes through the ``weighted_merge`` kernel on the card. The reference's
-host-span (multi-process) and prefetch (overlap pipeline) branches of
-these methods are not ported.
+host-span (multi-process) branches of these methods are not ported.
+
+The overlapped mega-batch pipeline (``overlap=True``, the default; the
+scan engine only, as in the reference): ``run_megabatch`` issues mega-batch
+N's rounds from a pre-staged plan and, before the one host sync that
+collects N's metrics, does N+1's host work while the device runs N: the
+merge-cost clock bump, ``algo.adapt``, then N+1's plan, its fused pack
+into one of two ``StagingBuffers`` slots (pinned on the card) and one
+asynchronous upload on the current stream, queued behind N's rounds. The
+host-stateful steps keep the sequential order (… plan N → clock bump N →
+plan N+1 …), so a run is bitwise the sequential one's on the CPU
+(``overlap=False``, the oracle). A staged plan is revocable:
+``invalidate_prefetch`` rolls the provider, clocks and speed model back
+to the snapshot taken before it was planned (a resize, an eviction, a
+stall's start or end, a restore), and a checkpoint taken while it is
+staged stores that snapshot, so a restore replays it. ``run`` evaluates
+asynchronously: the test set is uploaded once, evaluation is issued at a
+boundary and collected at the next. The reference's measured speed model,
+its per-shard timers and host spans are not ported.
 
 Device rule: ``device=None`` means CUDA and raises where there is none;
 the CPU runs only when asked for (``device="cpu"``), as the tests do. On
@@ -52,6 +69,8 @@ the card the input layer and the merge run in the port's CUDA kernels.
 """
 from __future__ import annotations
 
+import collections
+import copy
 import dataclasses
 import time
 from dataclasses import dataclass, field
@@ -66,14 +85,17 @@ from repro_torch.core import adaptive_sgd as asgd
 from repro_torch.core import algorithms
 from repro_torch.core.heterogeneity import CostModel, SpeedModel
 from repro_torch.core.scheduler import DynamicScheduler
+from repro_torch.data.batcher import StagingBuffers
 from repro_torch.models.protocol import TrainableModel
 from repro_torch.optim.sgd import SGDConfig, init_momentum, sgd_update
 from repro_torch.utils import tree as tu
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import MetricsLog, log
 
-MERGE_COST = 5e-3  # virtual seconds charged per merge (the all-reduce)
+MERGE_COST = 5e-3  # default virtual seconds charged per merge (the all-reduce)
 ENGINES = ("scan", "legacy_loop")
+# the trainer's own arrays in a staging slot, beside the provider's fields
+_STAGED_MASK, _STAGED_LR = "_update_mask", "_lr"
 
 
 @dataclass
@@ -85,6 +107,43 @@ class ElasticState:
     b: np.ndarray                    # per-replica batch size (may be fractional)
     lr: np.ndarray                   # per-replica learning rate
     megabatch_idx: int = 0
+
+
+@dataclass
+class _PlanView:
+    """The slice of ElasticState the planning hook reads (``algo.plan``
+    consumes only b / lr / the index): lets the overlap pipeline plan
+    mega-batch N+1 from ``adapt``'s outputs before N's merged state
+    exists."""
+
+    b: np.ndarray
+    lr: np.ndarray
+    megabatch_idx: int
+
+
+@dataclass
+class _StagedMegaBatch:
+    """A prefetched mega-batch: plan, device tensors, and the cursor
+    snapshot that makes it revocable.
+
+    ``snapshot`` holds the provider's stream state, the virtual clocks and
+    the speed model's state from before the staging plan ran:
+    ``invalidate_prefetch`` rolls the trainer back to it, and
+    ``checkpoint_payload`` stores it, so a checkpoint taken while this
+    mega-batch is staged restores to replay it.
+    """
+
+    plan: Any                 # MegaBatchPlan
+    batches: dict             # device tensors, leaves (n_rounds, R, ...)
+    mask: torch.Tensor        # device (n_rounds, R) f32 update mask
+    mask_host: np.ndarray     # its host copy: which rounds have a live replica
+    lr_dev: torch.Tensor      # device (R,) f32 learning rates
+    b: np.ndarray             # host copies the plan was made for (validation)
+    lr: np.ndarray
+    megabatch_idx: int
+    n_replicas: int
+    slot_id: int              # its StagingBuffers slot
+    snapshot: dict            # pre-staging cursor state (see above)
 
 
 def _to_device(arrays: dict, device: torch.device) -> dict:
@@ -151,6 +210,10 @@ class ElasticTrainer:
     engine: str = "scan"             # 'scan' | 'legacy_loop' (see module doc)
     sparse_grads: bool = True        # use the model's row-sparse grad path if
                                      # it provides one; False = dense autograd
+    merge_cost: float = MERGE_COST   # virtual seconds per merge (all-reduce)
+    overlap: bool = True             # overlapped mega-batch pipeline (module
+                                     # doc); scan engine only; False = the
+                                     # sequential oracle
 
     def __post_init__(self):
         if self.engine not in ENGINES:
@@ -167,6 +230,14 @@ class ElasticTrainer:
         self.cost = CostModel(self.speed)
         self.scheduler = DynamicScheduler(self.cfg, self.cost)
         self._transforms = self.algo.round_transforms(self.cfg)
+        self._eval_batches = None        # the test set, uploaded once
+        self._eval_batches_src = None    # pins the staged list + its payloads
+        self._eval_batches_key = None    # fingerprint of that list
+        self._staged = None              # prefetched _StagedMegaBatch
+        self._staging = StagingBuffers(pin_memory=self.device.type == "cuda")
+        # one entry a staged or sequential mega-batch (the scan engine):
+        # host seconds to plan, pack and upload, and the bytes uploaded
+        self.staging_log = collections.deque(maxlen=1024)
 
     # ------------------------------------------------------------------
     # tensor math exposed to Algorithm.merge implementations
@@ -231,9 +302,12 @@ class ElasticTrainer:
         tensors: nothing writes a global in place (merges, the guard's
         restart and checkpoints only read them). Resolves through
         ``algo.resolve_n_replicas`` first (``single`` makes any schedule a
-        no-op). Treat the input state as consumed. The reference's re-shard (sharded placement; under vmap
-        the new tensors are already on the trainer's device) and prefetch
-        invalidation are not ported.
+        no-op). A prefetched plan was made for the old R: it is revoked
+        (``invalidate_prefetch``) before anything changes, but not by a
+        resize to the current R, so a constant schedule keeps it. Treat the
+        input state as consumed. The reference's re-shard (sharded
+        placement; under vmap the new tensors are already on the trainer's
+        device) is not ported.
         """
         new_R = int(self.algo.resolve_n_replicas(int(new_R)))
         R = self.cfg.n_replicas
@@ -241,6 +315,7 @@ class ElasticTrainer:
             return state
         if new_R < 1:
             raise ValueError(f"cannot resize to {new_R} replicas")
+        self.invalidate_prefetch()
 
         # ---- final normalized merge over the outgoing population ----
         alphas = np.asarray(state.b, np.float64)
@@ -316,7 +391,9 @@ class ElasticTrainer:
         or poisoned replica is excluded — its rows are zeroed and its merge
         weight set to 0, so the normalization redistributes b_i over the
         survivors and a NaN never reaches the weighted sum (0 * NaN is NaN,
-        hence the zeroing). The reference's host-span branch is not ported.
+        hence the zeroing). A prefetched plan is revoked first: the
+        permutation moves speed factors and clocks it consumed in the old
+        order. The reference's host-span branch is not ported.
         """
         R = self.cfg.n_replicas
         drop = sorted({int(i) for i in indices})
@@ -327,6 +404,7 @@ class ElasticTrainer:
             raise ValueError(f"replica indices {bad} out of range for R={R}")
         if len(drop) >= R:
             raise ValueError(f"cannot remove all {R} replicas (removal of {drop})")
+        self.invalidate_prefetch()
         survivors = [i for i in range(R) if i not in set(drop)]
         perm = survivors + drop
 
@@ -377,21 +455,19 @@ class ElasticTrainer:
         return train_round(self._grads, replicas, momentum, batch, lr_vec, update_mask,
                            self.sgd, self._transforms, live)
 
-    def _run_rounds_scan(self, state: ElasticState, plan, b_slots: int):
-        """Upload the stacked plan once, run its rounds on the device, and
-        read the mega-batch's (loss, accuracy) back in one host sync."""
-        grid = plan.payload_grid(self.cfg.n_replicas)
-        batches_np, mask_np = self.provider.stack_plan(grid, b_slots)
-        batches = _to_device(batches_np, self.device)
-        mask = torch.from_numpy(mask_np).to(self.device)
-        lr = torch.from_numpy(np.asarray(state.lr, np.float32)).to(self.device)
+    def _dispatch_rounds(self, state: ElasticState, batches: dict, mask, mask_host, lr):
+        """Issue every round of a stacked plan on the device; returns
+        ``(replicas, momentum, stats)`` with ``stats`` the (n_rounds, 4)
+        device tensor of per-round (loss, accuracy, samples, live), reduced
+        with the reference's normalization. No host sync: ``mask_host`` is
+        the host copy of ``mask``, read for each round's ``live``."""
         replicas, momentum = state.replicas, state.momentum
         stats = []
-        for r in range(plan.n_rounds):
+        for r in range(len(mask_host)):
             m = mask[r]
             replicas, momentum, loss, aux = self._round(
                 replicas, momentum, {k: v[r] for k, v in batches.items()}, lr, m,
-                live=bool(mask_np[r].any()),
+                live=bool(mask_host[r].any()),
             )
             sums = torch.stack([
                 (loss * m).sum(),
@@ -403,10 +479,43 @@ class ElasticTrainer:
             stats.append(torch.stack(
                 [sums[0] / denom, sums[1] / denom, sums[2], (sums[3] > 0).float()]
             ))
-        stats = torch.stack(stats)
+        return replicas, momentum, torch.stack(stats)
+
+    @staticmethod
+    def _finish_metrics(stats) -> tuple[float, float]:
+        """A mega-batch's (loss, accuracy) from ``_dispatch_rounds``'s
+        stats: the one host sync of the scan engine."""
         n_live = stats[:, 3].sum().clamp_min(1.0)
         loss, acc = (torch.stack([stats[:, 0].sum(), stats[:, 1].sum()]) / n_live).tolist()
+        return loss, acc
+
+    def _run_rounds_scan(self, state: ElasticState, plan, b_slots: int):
+        """Upload the stacked plan once, run its rounds on the device, and
+        read the mega-batch's (loss, accuracy) back in one host sync."""
+        t0 = time.perf_counter()
+        grid = plan.payload_grid(self.cfg.n_replicas)
+        batches_np, mask_np = self.provider.stack_plan(grid, b_slots)
+        lr_np = np.asarray(state.lr, np.float32)
+        t1 = time.perf_counter()
+        batches = _to_device(batches_np, self.device)
+        mask = torch.from_numpy(mask_np).to(self.device)
+        lr = torch.from_numpy(lr_np).to(self.device)
+        self._log_staging(state.megabatch_idx, None, t0, t1, time.perf_counter(),
+                          [*batches_np.values(), mask_np, lr_np])
+        replicas, momentum, stats = self._dispatch_rounds(state, batches, mask, mask_np, lr)
+        loss, acc = self._finish_metrics(stats)
         return replicas, momentum, loss, acc
+
+    def _log_staging(self, megabatch_idx, t_plan, t_pack, t_upload, t_end, arrays) -> None:
+        """One ``staging_log`` entry: host seconds to plan (None where the
+        caller planned outside), pack and upload, and the bytes uploaded."""
+        self.staging_log.append({
+            "megabatch": int(megabatch_idx),
+            "plan_s": None if t_plan is None else t_pack - t_plan,
+            "pack_s": t_upload - t_pack,
+            "upload_s": t_end - t_upload,
+            "bytes": int(sum(a.nbytes for a in arrays)),
+        })
 
     def _run_rounds_legacy(self, state: ElasticState, plan, b_slots: int):
         """The reference's per-round host loop: one upload per round, empty
@@ -473,16 +582,32 @@ class ElasticTrainer:
     # ------------------------------------------------------------------
     # one mega-batch
     # ------------------------------------------------------------------
-    def run_megabatch(self, state: ElasticState) -> tuple[ElasticState, dict]:
+    def run_megabatch(
+        self, state: ElasticState, prefetch: Optional[bool] = None
+    ) -> tuple[ElasticState, dict]:
         """Plan, execute, and merge one mega-batch; returns (new_state, info).
 
         ``algo.plan`` → rounds (with ``algo.round_transforms``) →
         non-finite guard → ``algo.merge`` → ``algo.adapt`` → merge-cost
-        accounting. The rounds update ``state.replicas``/``state.momentum``
-        in place: continue from the returned state only.
+        accounting. With ``overlap`` on and the scan engine, the pipelined
+        variant runs (module doc); ``prefetch=True`` also stages the next
+        mega-batch (``run`` asks for it on all but the last), and a bare
+        call leaves no staged plan behind. The rounds update
+        ``state.replicas``/``state.momentum`` in place: continue from the
+        returned state only.
         """
+        if self.overlap and self.engine == "scan":
+            return self._run_megabatch_overlap(state, bool(prefetch))
+        # a stale prefetch (overlap turned off between calls) must not leak
+        # its advanced cursors into the sequential path
+        if self._staged is not None:
+            self.invalidate_prefetch()
+        return self._run_megabatch_sync(state)
+
+    def _run_megabatch_sync(self, state: ElasticState) -> tuple[ElasticState, dict]:
+        """Sequential mega-batch: plan → execute → merge, one after another
+        (the oracle of the overlap pipeline)."""
         cfg = self.cfg
-        R = cfg.n_replicas
         mega_samples = cfg.mega_batch * cfg.b_max
         b_slots = cfg.b_max
 
@@ -490,12 +615,16 @@ class ElasticTrainer:
             payload = self.provider.fetch(take, b_slots)
             return payload, self.provider.work_units(payload)
 
+        t0 = time.perf_counter()
         plan = self.algo.plan(self.scheduler, state, mega_samples, fetch)
-        run_rounds = (
-            self._run_rounds_legacy if self.engine == "legacy_loop"
-            else self._run_rounds_scan
-        )
-        replicas, momentum, train_loss, train_acc = run_rounds(state, plan, b_slots)
+        plan_s = time.perf_counter() - t0
+        if self.engine == "legacy_loop":
+            replicas, momentum, train_loss, train_acc = self._run_rounds_legacy(
+                state, plan, b_slots)
+        else:
+            replicas, momentum, train_loss, train_acc = self._run_rounds_scan(
+                state, plan, b_slots)
+            self.staging_log[-1]["plan_s"] = plan_s
 
         # ---- non-finite guard: heal poisoned replicas before the barrier;
         # inert while every replica is finite ----
@@ -508,12 +637,61 @@ class ElasticTrainer:
         # ---- merge (the barrier) + between-mega-batch adaptation ----
         outcome = self.algo.merge(self, state, plan, replicas)
         new_b, new_lr = self.algo.adapt(state, plan, cfg)
-        alphas = outcome.alphas if outcome.alphas is not None else np.full(R, 1.0 / R)
 
         n_merges = self.algo.merges_per_megabatch(plan)
-        self.scheduler.clock.t[:] += MERGE_COST * n_merges
+        self.scheduler.clock.t[:] += self.merge_cost * n_merges
         virtual_time = float(self.scheduler.clock.t.max())
+        return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
+                                      train_loss, train_acc, virtual_time, guard_repaired)
 
+    def _run_megabatch_overlap(
+        self, state: ElasticState, prefetch: bool
+    ) -> tuple[ElasticState, dict]:
+        """Pipelined mega-batch: issue N's rounds from the staged plan, then
+        do N+1's host work (clock bump → adapt → plan → fused pack →
+        asynchronous upload) before the one host sync that collects N's
+        metrics; the device runs N meanwhile.
+
+        The host-stateful steps keep the sequential path's relative order
+        (… plan N → merge-cost clock bump N → plan N+1 …), and ``merge``,
+        ``adapt`` and the guard are pure functions of (state, plan, device
+        results), so the trajectory is the sequential one's."""
+        cfg = self.cfg
+        staged = self._take_staged(state)
+        if staged is None:
+            staged = self._stage_megabatch(state.b, state.lr, int(state.megabatch_idx))
+        plan = staged.plan
+        replicas, momentum, stats = self._dispatch_rounds(
+            state, staged.batches, staged.mask, staged.mask_host, staged.lr_dev)
+
+        # ---- host work overlapped with the rounds on the device ----
+        n_merges = self.algo.merges_per_megabatch(plan)
+        self.scheduler.clock.t[:] += self.merge_cost * n_merges
+        virtual_time = float(self.scheduler.clock.t.max())
+        new_b, new_lr = self.algo.adapt(state, plan, cfg)
+        if prefetch:
+            self._staged = self._stage_megabatch(new_b, new_lr, int(state.megabatch_idx) + 1)
+
+        # ---- collect: the one host sync of the mega-batch ----
+        train_loss, train_acc = self._finish_metrics(stats)
+        # the slot's consumer is done on the device: reusable two stagings on
+        self._staging.release(staged.slot_id)
+
+        # ---- non-finite guard, then the merge (the barrier) ----
+        guard_repaired: list[int] = []
+        finite = self._finite_rows(replicas)
+        if not finite.all():
+            replicas, momentum = self._repair_nonfinite(state, replicas, momentum, finite)
+            guard_repaired = np.flatnonzero(~finite).tolist()
+        outcome = self.algo.merge(self, state, plan, replicas)
+        return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
+                                      train_loss, train_acc, virtual_time, guard_repaired)
+
+    def _megabatch_result(self, state, plan, outcome, momentum, new_b, new_lr,
+                          train_loss, train_acc, virtual_time, guard_repaired):
+        """(new_state, info) of a mega-batch, for both paths."""
+        R = self.cfg.n_replicas
+        alphas = outcome.alphas if outcome.alphas is not None else np.full(R, 1.0 / R)
         new_state = ElasticState(
             replicas=outcome.replicas,
             global_model=outcome.global_model,
@@ -540,28 +718,168 @@ class ElasticTrainer:
         return new_state, info
 
     # ------------------------------------------------------------------
+    # staging: plan → fused pack → one asynchronous upload, revocable
+    # ------------------------------------------------------------------
+    def _cursor_snapshot(self) -> dict:
+        """Copies of every host cursor a staging plan advances: the
+        provider's stream (sample RNG and position), the virtual clocks and
+        the (simulated) speed model, whose planning draws jitter."""
+        return {
+            "provider": copy.deepcopy(self.provider.state_dict()),
+            "clock_t": np.asarray(self.scheduler.clock.t, np.float64).copy(),
+            "speed": copy.deepcopy(self.speed.state_dict()),
+        }
+
+    def _stage_megabatch(self, b, lr, megabatch_idx: int) -> _StagedMegaBatch:
+        """Plan one mega-batch and stage it on the device.
+
+        Fetches through the provider's ``fetch_staged`` (XML: ids and work
+        units only), packs the plan grid into a ``StagingBuffers`` slot
+        (pinned on the card; XML: one fused gather), the update mask and
+        the learning rates beside it, and issues one asynchronous copy of
+        each array on the current stream: queued behind the rounds already
+        issued, so nothing waits on the host. The cursor snapshot is taken
+        first, which makes the staging revocable (``invalidate_prefetch``)
+        and checkpoint-safe (``checkpoint_payload``).
+        """
+        cfg = self.cfg
+        R = cfg.n_replicas
+        b_slots = cfg.b_max
+        mega_samples = cfg.mega_batch * cfg.b_max
+        b = np.asarray(b, np.float64).copy()
+        lr = np.asarray(lr, np.float64).copy()
+        snapshot = self._cursor_snapshot()
+
+        provider = self.provider
+
+        def fetch(i, take):
+            return provider.fetch_staged(take, b_slots)
+
+        t_plan = time.perf_counter()
+        plan = self.algo.plan(self.scheduler, _PlanView(b, lr, megabatch_idx), mega_samples, fetch)
+        grid = plan.payload_grid(R)
+        t_pack = time.perf_counter()
+        spec = dict(provider.staging_spec(len(grid), R, b_slots))
+        spec[_STAGED_MASK] = ((len(grid), R), np.float32)
+        spec[_STAGED_LR] = ((R,), np.float32)
+        slot_id, host = self._staging.acquire(spec)
+        out = {k: host[k].numpy() for k in spec if k not in (_STAGED_MASK, _STAGED_LR)}
+        _, mask_np = provider.stack_plan(grid, b_slots, out=out)
+        host[_STAGED_MASK].numpy()[...] = mask_np
+        host[_STAGED_LR].numpy()[...] = lr
+        t_upload = time.perf_counter()
+        dev = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+        mask_dev, lr_dev = dev.pop(_STAGED_MASK), dev.pop(_STAGED_LR)
+        self._log_staging(megabatch_idx, t_plan, t_pack, t_upload, time.perf_counter(),
+                          host.values())
+        return _StagedMegaBatch(
+            plan=plan, batches=dev, mask=mask_dev, mask_host=mask_np, lr_dev=lr_dev,
+            b=b, lr=lr, megabatch_idx=int(megabatch_idx), n_replicas=R,
+            slot_id=slot_id, snapshot=snapshot,
+        )
+
+    def _take_staged(self, state: ElasticState) -> Optional[_StagedMegaBatch]:
+        """Consume the prefetched mega-batch if it matches ``state``: the
+        same mega-batch index, width and b/lr vectors. Any mismatch (a
+        change that did not go through ``invalidate_prefetch``) discards it
+        with a cursor rollback, so the plan is simply made again."""
+        s = self._staged
+        if s is None:
+            return None
+        self._staged = None
+        if (
+            s.megabatch_idx == int(state.megabatch_idx)
+            and s.n_replicas == self.cfg.n_replicas
+            and np.array_equal(s.b, np.asarray(state.b, np.float64))
+            and np.array_equal(s.lr, np.asarray(state.lr, np.float64))
+        ):
+            return s
+        self._discard_staged(s)
+        return None
+
+    def invalidate_prefetch(self) -> None:
+        """Revoke the prefetched mega-batch (if any) and roll every host
+        cursor back to its pre-staging snapshot. Called before anything
+        that invalidates a staged plan (a resize, an eviction, a stall's
+        start or end, a checkpoint restore), so the next mega-batch plans
+        from unconsumed cursors."""
+        s = self._staged
+        if s is None:
+            return
+        self._staged = None
+        self._discard_staged(s)
+
+    def _discard_staged(self, s: _StagedMegaBatch) -> None:
+        snap = s.snapshot
+        self.provider.load_state_dict(snap["provider"])
+        self.scheduler.clock.t[:] = snap["clock_t"]
+        self.speed.load_state_dict(snap["speed"])
+        # staged before the collect that ended the last mega-batch, so its
+        # upload has completed: the slot is free to rewrite
+        self._staging.release(s.slot_id)
+
+    # ------------------------------------------------------------------
     # evaluation + full run
     # ------------------------------------------------------------------
+    @staticmethod
+    def _eval_cache_key(test_batches: list) -> tuple:
+        """Fingerprint of a test set: the list's identity, its length and
+        the identities of its first and last payloads (a rebuilt or
+        extended list re-stages; a swap of only a middle element does not,
+        so pass a fresh list after one)."""
+        return (
+            id(test_batches),
+            len(test_batches),
+            id(test_batches[0]) if test_batches else None,
+            id(test_batches[-1]) if test_batches else None,
+        )
+
+    def _staged_test_batches(self, test_batches: list) -> list:
+        """Stack and upload the test set once; reuse the device tensors
+        while the fingerprint holds. The source list and its payloads stay
+        referenced, so no fingerprinted id can be recycled."""
+        key = self._eval_cache_key(test_batches)
+        if self._eval_batches_key != key:
+            staged = []
+            for payload in test_batches:
+                stacked = self.provider.stack([payload])
+                staged.append(_to_device({k: v[0] for k, v in stacked.items()}, self.device))
+            self._eval_batches = staged
+            self._eval_batches_key = key
+            self._eval_batches_src = (test_batches, list(test_batches))
+        return self._eval_batches
+
     @torch.no_grad()
-    def evaluate(self, params: dict, test_batches: list) -> dict:
-        """Sample-weighted test loss and top-1 accuracy of ``params`` (no
-        replica dim) over ``test_batches``, read back in one host sync."""
+    def evaluate_async(self, params: dict, test_batches: list):
+        """Issue the evaluation of ``params`` (no replica dim) on every
+        staged test batch without a host sync; returns a collector that
+        reads the results back in one sync and returns the sample-weighted
+        test loss and top-1 accuracy. ``run`` issues it at a boundary and
+        collects it at the next, so its device work queues behind the next
+        mega-batch's instead of stalling the host between them."""
         per_batch = []
-        for payload in test_batches:
-            stacked = self.provider.stack([payload])
-            batch = _to_device({k: v[0] for k, v in stacked.items()}, self.device)
+        for batch in self._staged_test_batches(test_batches):
             loss, aux = self.model.loss_fn(params, batch)
             per_batch.append(torch.stack([loss, aux["accuracy"], aux["n_valid"]]))
-        rows = torch.stack(per_batch).tolist() if per_batch else []
-        tot_acc, tot_loss, tot_n = 0.0, 0.0, 0.0
-        for loss, acc, n in rows:
-            tot_acc += acc * n
-            tot_loss += loss * n
-            tot_n += n
-        return {
-            "accuracy": tot_acc / max(tot_n, 1.0),
-            "loss": tot_loss / max(tot_n, 1.0),
-        }
+        pending = torch.stack(per_batch) if per_batch else None
+
+        def collect() -> dict:
+            rows = pending.tolist() if pending is not None else []
+            tot_acc, tot_loss, tot_n = 0.0, 0.0, 0.0
+            for loss, acc, n in rows:
+                tot_acc += acc * n
+                tot_loss += loss * n
+                tot_n += n
+            return {
+                "accuracy": tot_acc / max(tot_n, 1.0),
+                "loss": tot_loss / max(tot_n, 1.0),
+            }
+
+        return collect
+
+    def evaluate(self, params: dict, test_batches: list) -> dict:
+        """Sample-weighted test loss and top-1 accuracy of ``params``."""
+        return self.evaluate_async(params, test_batches)()
 
     # ------------------------------------------------------------------
     # crash-consistent checkpointing
@@ -576,9 +894,23 @@ class ElasticTrainer:
         factors; metadata: the mega-batch index, width, algorithm, seed,
         the speed model's RNG and the provider's stream cursor and RNG.
         The tensors are the live ones: ``CheckpointManager`` copies them.
-        The reference's prefetch-snapshot and host-span branches are not
-        ported."""
+
+        When a mega-batch for this exact ``state`` is staged but not yet
+        trained on, the cursors from before its staging plan (provider,
+        clocks, speed model) are stored instead of the live ones, so a
+        restore replays it instead of skipping it. The reference's
+        host-span branch is not ported."""
         speed_sd = self.speed.state_dict()
+        provider_sd = (
+            self.provider.state_dict() if hasattr(self.provider, "state_dict") else None
+        )
+        clock_t = np.asarray(self.scheduler.clock.t, np.float64)
+        staged = self._staged
+        if staged is not None and staged.megabatch_idx == int(state.megabatch_idx):
+            snap = staged.snapshot
+            provider_sd = snap["provider"]
+            clock_t = np.asarray(snap["clock_t"], np.float64)
+            speed_sd = snap["speed"]
         tree = {
             "replicas": _nested(state.replicas),
             "momentum": _nested(state.momentum),
@@ -586,7 +918,7 @@ class ElasticTrainer:
             "prev_global": _nested(state.prev_global),
             "b": np.asarray(state.b, np.float64),
             "lr": np.asarray(state.lr, np.float64),
-            "clock_t": np.asarray(self.scheduler.clock.t, np.float64),
+            "clock_t": clock_t,
             "speed": speed_sd["arrays"],
         }
         metadata = {
@@ -602,8 +934,8 @@ class ElasticTrainer:
             },
             "speed_meta": speed_sd["meta"],
         }
-        if hasattr(self.provider, "state_dict"):
-            metadata["provider"] = self.provider.state_dict()
+        if provider_sd is not None:
+            metadata["provider"] = provider_sd
         return tree, metadata
 
     def restore_checkpoint(self, path: str) -> ElasticState:
@@ -615,8 +947,10 @@ class ElasticTrainer:
         with the same model/algorithm/config family as the writer —
         structural mismatches raise ``checkpoint.store.CheckpointError`` —
         but its replica count may differ: the checkpointed width is
-        adopted (``_adopt_width``).
+        adopted (``_adopt_width``). A prefetched plan belongs to the
+        pre-restore trajectory and is revoked first.
         """
+        self.invalidate_prefetch()
         path = ckpt_store.resolve_checkpoint(path)
         meta = ckpt_store.load_metadata(path)
         if meta.get("algorithm") != self.cfg.algorithm:
@@ -736,6 +1070,12 @@ class ElasticTrainer:
         ``restore_from`` — a checkpoint path (or manager directory) to
         resume from instead of ``init_state``; training continues at the
         checkpointed mega-batch index.
+
+        With the overlap pipeline (``overlap`` and the scan engine), every
+        mega-batch but the last stages the next one, and evaluation is
+        issued at a boundary and collected at the next, then written into
+        the record of the mega-batch it belongs to (its progress line waits
+        for it); the last is collected before returning.
         """
         if resize_schedule is not None:
             resize_schedule = self._validate_resize_schedule(resize_schedule)
@@ -747,23 +1087,11 @@ class ElasticTrainer:
                 log("init", seconds=round(self.init_seconds, 3),
                     params=tu.tree_size(state.replicas) // self.cfg.n_replicas)
         mlog = MetricsLog()
-        t0 = time.perf_counter()
-        for mb in range(int(state.megabatch_idx), n_megabatches):
-            if resize_schedule is not None and mb in resize_schedule:
-                state = self.resize(state, resize_schedule[mb])
-            if fleet is not None:
-                state = fleet.step(self, state, mb)
-            state, info = self.run_megabatch(state)
-            if checkpoint is not None:
-                checkpoint.maybe_save(self, state)
-            if test_batches is not None and (mb + 1) % eval_every == 0:
-                ev = self.evaluate(state.global_model, test_batches)
-                info.update(accuracy=ev["accuracy"], test_loss=ev["loss"])
-            info["megabatch"] = mb + 1
-            info["wall_clock"] = time.perf_counter() - t0
-            mlog.append(**info)
+        overlap_active = self.overlap and self.engine == "scan"
+        pending_eval = None  # (record to backfill, collector)
+
+        def emit_line(record):
             if verbose:
-                record = mlog.records[-1]
                 log(
                     f"[{self.cfg.algorithm}] mb={record['megabatch']}",
                     loss=round(record["train_loss"], 4),
@@ -772,6 +1100,47 @@ class ElasticTrainer:
                     b=record["b"],
                     vt=round(record["virtual_time"], 3),
                 )
+
+        def drain_eval():
+            nonlocal pending_eval
+            if pending_eval is not None:
+                record, collect = pending_eval
+                ev = collect()
+                record.update(accuracy=ev["accuracy"], test_loss=ev["loss"])
+                pending_eval = None
+                emit_line(record)
+
+        t0 = time.perf_counter()
+        for mb in range(int(state.megabatch_idx), n_megabatches):
+            if resize_schedule is not None and mb in resize_schedule:
+                state = self.resize(state, resize_schedule[mb])
+            if fleet is not None:
+                state = fleet.step(self, state, mb)
+            # the last mega-batch stages nothing: run ends with every host
+            # cursor consumed
+            state, info = self.run_megabatch(
+                state, prefetch=overlap_active and mb + 1 < n_megabatches
+            )
+            if checkpoint is not None:
+                checkpoint.maybe_save(self, state)
+            # the previous boundary's evaluation ran behind this mega-batch
+            drain_eval()
+            collect = None
+            if test_batches is not None and (mb + 1) % eval_every == 0:
+                if overlap_active:
+                    collect = self.evaluate_async(state.global_model, test_batches)
+                else:
+                    ev = self.evaluate(state.global_model, test_batches)
+                    info.update(accuracy=ev["accuracy"], test_loss=ev["loss"])
+            info["megabatch"] = mb + 1
+            info["wall_clock"] = time.perf_counter() - t0
+            mlog.append(**info)
+            if collect is not None:
+                # MetricsLog.append copies: backfill the stored record
+                pending_eval = (mlog.records[-1], collect)
+            else:
+                emit_line(mlog.records[-1])
+        drain_eval()
         if checkpoint is not None:
             checkpoint.wait()
         return state, mlog

@@ -1,8 +1,9 @@
 """Data providers: the trainer's uniform batch interface.
 
 Copied from ``repro/data/providers.py`` (``plan_update_mask``,
-``SparseProvider`` and ``TokenProvider``, each without the staged-prefetch
-half: ``fetch_staged``, ``staging_spec`` and ``stack_plan``'s ``out``).
+``SparseProvider`` and ``TokenProvider``, each with the overlap
+pipeline's staging half: ``fetch_staged``, ``staging_spec`` and
+``stack_plan``'s ``out``).
 
 A provider fetches variable-size batches into fixed-slot payloads, reports
 their work units (nnz / tokens — feeds the virtual clock), and stacks
@@ -14,8 +15,13 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .batcher import SparseBatcher, stack_plan_batches, stack_replica_batches
-from .sparse import SparseBatch, SparseDataset, pack_batch
+from .batcher import (
+    SparseBatcher,
+    stack_lazy_plan,
+    stack_plan_batches,
+    stack_replica_batches,
+)
+from .sparse import LazySparseBatch, SparseBatch, SparseDataset, pack_batch
 from .tokens import TokenStream, stack_plan_token_batches, stack_token_batches
 
 
@@ -37,6 +43,12 @@ class SparseProvider:
     def fetch(self, take: int, b_slots: int) -> SparseBatch:
         return self.batcher.next_batch(take, b_slots)
 
+    def fetch_staged(self, take: int, b_slots: int) -> tuple[LazySparseBatch, int]:
+        """Prefetch-path fetch: the same stream draw as :meth:`fetch`, but
+        packing is deferred to :meth:`stack_plan`'s fused gather."""
+        p = self.batcher.next_batch_lazy(take, b_slots)
+        return p, p.work
+
     def empty(self, b_slots: int) -> SparseBatch:
         return self.batcher.empty(b_slots)
 
@@ -52,9 +64,35 @@ class SparseProvider:
     def load_state_dict(self, sd: dict) -> None:
         self.batcher.load_state_dict(sd)
 
-    def stack_plan(self, grid: list[list], b_slots: int) -> tuple[dict, np.ndarray]:
-        """Whole-plan stack: (n_rounds, R, ...) arrays + (n_rounds, R) mask."""
-        return stack_plan_batches(grid, self.empty(b_slots)), plan_update_mask(grid)
+    def staging_spec(self, n_rounds: int, n_replicas: int, b_slots: int) -> dict:
+        """{field: (shape, dtype)} of the stacked plan grid, for StagingBuffers."""
+        nnz, lab = self.batcher.max_nnz, self.batcher.max_labels
+        g = (n_rounds, n_replicas, b_slots)
+        return {
+            "feat_idx": (g + (nnz,), np.int32),
+            "feat_val": (g + (nnz,), np.float32),
+            "feat_mask": (g + (nnz,), bool),
+            "label_idx": (g + (lab,), np.int32),
+            "label_mask": (g + (lab,), bool),
+            "sample_mask": (g, bool),
+        }
+
+    def stack_plan(
+        self, grid: list[list], b_slots: int, out: dict | None = None
+    ) -> tuple[dict, np.ndarray]:
+        """Whole-plan stack: (n_rounds, R, ...) arrays + (n_rounds, R) mask.
+
+        Lazy payload grids (from :meth:`fetch_staged`) take the fused
+        vectorized gather; eager grids keep the per-payload path. ``out``
+        is an optional pre-zeroed staging slot to pack into.
+        """
+        first = next((p for row in grid for p in row if p is not None), None)
+        if isinstance(first, LazySparseBatch):
+            b = self.batcher
+            stacked = stack_lazy_plan(b.ds, grid, b_slots, b.max_nnz, b.max_labels, out=out)
+        else:
+            stacked = stack_plan_batches(grid, self.empty(b_slots), out=out)
+        return stacked, plan_update_mask(grid)
 
     def test_batches(self, ds: SparseDataset, b_slots: int, max_samples: int = 0):
         """Pack a test dataset into full-size batches for evaluation."""
@@ -80,6 +118,13 @@ class TokenProvider:
     def fetch(self, take: int, b_slots: int) -> dict:
         return self.stream.batch(take, b_slots, self.seq_len)
 
+    def fetch_staged(self, take: int, b_slots: int) -> tuple[dict, int]:
+        """Token batches consume stream RNG at fetch time, so there is no
+        lazy form: the staged path packs eagerly and still gains the
+        buffered stacking and the single batched upload."""
+        p = self.fetch(take, b_slots)
+        return p, self.work_units(p)
+
     def empty(self, b_slots: int) -> dict:
         return self.stream.batch(0, b_slots, self.seq_len)
 
@@ -95,10 +140,20 @@ class TokenProvider:
     def load_state_dict(self, sd: dict) -> None:
         self.stream.load_state_dict(sd)
 
-    def stack_plan(self, grid: list[list], b_slots: int) -> tuple[dict, np.ndarray]:
+    def staging_spec(self, n_rounds: int, n_replicas: int, b_slots: int) -> dict:
+        g = (n_rounds, n_replicas, b_slots)
+        return {
+            "tokens": (g + (self.seq_len,), np.int32),
+            "targets": (g + (self.seq_len,), np.int32),
+            "sample_mask": (g, bool),
+        }
+
+    def stack_plan(
+        self, grid: list[list], b_slots: int, out: dict | None = None
+    ) -> tuple[dict, np.ndarray]:
         """Whole-plan stack: (n_rounds, R, ...) arrays + (n_rounds, R) mask."""
         return (
-            stack_plan_token_batches(grid, self.empty(b_slots)),
+            stack_plan_token_batches(grid, self.empty(b_slots), out=out),
             plan_update_mask(grid),
         )
 

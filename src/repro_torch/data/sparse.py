@@ -1,7 +1,7 @@
 """Sparse sample containers.
 
 Copied from ``repro/data/sparse.py`` (``SparseDataset``, ``SparseBatch``,
-``subset``, ``train_test_split``, ``pack_batch``).
+``LazySparseBatch``, ``subset``, ``train_test_split``, ``pack_batch``).
 
 The paper trains on libSVM-style sparse data (XML classification): each
 sample is a high-dimensional sparse feature vector plus a sparse label set.
@@ -74,6 +74,24 @@ class SparseBatch:
     @property
     def total_nnz(self) -> int:
         return int((self.feat_mask & self.sample_mask[:, None]).sum())
+
+
+@dataclass
+class LazySparseBatch:
+    """Deferred batch: sample ids + work units, no packed arrays yet.
+
+    The overlap pipeline's staging path fetches these while planning:
+    ``work`` comes straight from the CSR ``indptr``, so the discrete-event
+    scheduler costs the dispatch without ``pack_batch``'s per-row loop. The
+    whole mega-batch is then packed in one vectorized gather by
+    :func:`repro_torch.data.batcher.stack_lazy_plan`. ``work`` equals the
+    packed batch's ``total_nnz`` exactly (per-row nnz clipped to
+    ``max_nnz``), so virtual-clock trajectories match the eager path bit for
+    bit.
+    """
+
+    ids: np.ndarray   # (n,) int64 sample ids, n <= b_slots
+    work: int         # sum(min(nnz_i, max_nnz)) == packed total_nnz
 
 
 def subset(ds: SparseDataset, ids: np.ndarray) -> SparseDataset:

@@ -1,8 +1,7 @@
 """Synthetic token-LM data pipeline for the LM architectures.
 
 Copied from ``repro/data/tokens.py`` (``TokenStream``,
-``stack_token_batches``, ``stack_plan_token_batches`` without the staging
-buffer).
+``stack_token_batches``, ``stack_plan_token_batches``).
 
 Produces (tokens, targets, sample_mask) batches. Token streams are Zipf-
 distributed with a learnable bigram structure so small models show loss
@@ -64,11 +63,13 @@ def stack_token_batches(batches: list[dict]) -> dict:
     return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
 
 
-def stack_plan_token_batches(grid: list[list], template: dict) -> dict:
+def stack_plan_token_batches(
+    grid: list[list], template: dict, out: dict | None = None
+) -> dict:
     """Stack a scheduler payload grid into (n_rounds, R, ...) token arrays.
 
     Masked (None) slots stay all-zero — identical to an empty token batch
     (sample_mask all False)."""
     from .batcher import stack_plan_grid
 
-    return stack_plan_grid(grid, template)
+    return stack_plan_grid(grid, template, out=out)

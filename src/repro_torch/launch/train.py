@@ -5,7 +5,7 @@ paper's 3-layer sparse MLP on synthetic XML data (``--workload xml``) or a
 decoder-only LM architecture on a synthetic token stream (``--workload
 lm``, the default, with ``--arch`` default tinyllama-1.1b), with the same
 flags, defaults and log lines as the reference (the subset this port
-supports: ``--engine``, ``--dense-grads``, ``--arch``, ``--reduced``,
+supports: ``--engine``, ``--overlap``, ``--dense-grads``, ``--arch``, ``--reduced``,
 ``--seq-len``, and the elastic-membership, fault and checkpoint flags
 ``--elastic-schedule``, ``--faults``, ``--min-replicas``,
 ``--max-replicas``, ``--timeout-factor``, ``--checkpoint-dir``,
@@ -117,6 +117,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", default="scan", choices=list(ENGINES),
                     help="mega-batch executor: device-resident scan (default)"
                          " or the per-round host loop")
+    ap.add_argument("--overlap", default="on", choices=["on", "off"],
+                    help="overlapped mega-batch pipeline: stage mega-batch"
+                         " N+1 (plan + pack + upload) while N executes, and"
+                         " evaluate asynchronously. 'off' is the sequential"
+                         " oracle, bit-identical on the CPU. Only the scan"
+                         " engine pipelines; the legacy engine always runs"
+                         " sequentially")
     ap.add_argument("--dense-grads", action="store_true",
                     help="force dense autodiff instead of the row-sparse"
                          " gradient path (the differential oracle)")
@@ -197,6 +204,7 @@ def main(argv=None):
         model=model, provider=provider, cfg=ecfg,
         base_lr=args.lr, speed=speed, seed=args.seed,
         device=args.device, engine=args.engine, sparse_grads=not args.dense_grads,
+        overlap=args.overlap == "on",
     )
     fleet = None
     if args.faults or args.timeout_factor > 0:

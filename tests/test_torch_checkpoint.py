@@ -453,3 +453,68 @@ def test_sigkill_and_restore_continue_the_uninterrupted_run(tmp_path):
             assert rec[k] == want[k], (rec["megabatch"], k)
         for k in E.METRICS:
             np.testing.assert_allclose(rec[k], want[k], err_msg=k, **E.TOL)
+
+
+# --------------------------------------------------------------------------
+# checkpoints taken while the overlap pipeline has a mega-batch staged
+# --------------------------------------------------------------------------
+
+
+def test_checkpoint_mid_prefetch_stores_the_snapshot_cursors():
+    """With mega-batch 2 staged, the payload holds the cursors from before
+    its plan: those of a sequential run at the same point, and of the
+    reference's payload at the same point of its own pipelined run."""
+    tr, _ = E.port_trainer("adaptive")
+    oracle, _ = E.port_trainer("adaptive")
+    oracle.overlap = False
+    jtr, _ = E.ref_trainer("adaptive")
+    state, _ = tr.run_megabatch(tr.init_state(), prefetch=True)
+    o_state, _ = oracle.run_megabatch(oracle.init_state())
+    j_state, _ = jtr.run_megabatch(jtr.init_state(), prefetch=True)
+    assert tr._staged is not None
+    assert tr.provider.state_dict() != oracle.provider.state_dict()   # staging moved on
+    tree, meta = tr.checkpoint_payload(state)
+    for other_tree, other_meta in (oracle.checkpoint_payload(o_state),
+                                   jtr.checkpoint_payload(j_state)):
+        assert meta["provider"] == other_meta["provider"]
+        assert repr(meta["speed_meta"]) == repr(other_meta["speed_meta"])
+        np.testing.assert_array_equal(tree["clock_t"], other_tree["clock_t"])
+        for k in tree["speed"]:
+            np.testing.assert_array_equal(tree["speed"][k], np.asarray(other_tree["speed"][k]))
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_mid_prefetch_checkpoint_crosses_packages(tmp_path, writer):
+    """The writer runs two pipelined mega-batches, so the third is staged,
+    and saves a checkpoint; the other package restores it and replays the
+    staged mega-batch and one more with the writer's host decisions (the
+    writer consumes its staged plan), losses and model within 1e-5."""
+    port_tr, _ = E.port_trainer("adaptive")
+    ref_tr, _ = E.ref_trainer("adaptive")
+    w_tr, r_tr, w_store = ((ref_tr, port_tr, jstore) if writer == "reference"
+                           else (port_tr, ref_tr, store))
+    state = w_tr.init_state()
+    for _ in range(2):
+        state, _ = w_tr.run_megabatch(state, prefetch=True)
+    assert w_tr._staged is not None
+    mgr = w_store.CheckpointManager(str(tmp_path), every=1)
+    mgr.maybe_save(w_tr, state)
+    mgr.wait()
+    path = mgr.step_path(2)
+    assert store.load_metadata(path)["provider"] != w_tr.provider.state_dict()
+    r_state = r_tr.restore_checkpoint(path)
+    infos = {}
+    for name, tr, s in (("writer", w_tr, state), ("reader", r_tr, r_state)):
+        recs = []
+        for prefetch in (True, False):
+            s, info = tr.run_megabatch(s, prefetch=prefetch)
+            recs.append(info)
+        infos[name] = (s, recs)
+    (w_state, w_recs), (r_state, r_recs) = infos["writer"], infos["reader"]
+    for rec, wrec in zip(r_recs, w_recs):
+        for k in E.EXACT:
+            assert rec[k] == wrec[k], k
+        for k in ("train_loss", "train_accuracy"):
+            np.testing.assert_allclose(rec[k], wrec[k], err_msg=k, **E.TOL)
+    port_state, ref_state = (r_state, w_state) if writer == "reference" else (w_state, r_state)
+    E.assert_state_matches(port_state, ref_state)

@@ -206,3 +206,31 @@ def test_random_fault_stream_matches_reference(merge_counter):
                        merge_counter, kw["schedule"], n_mb=10)
     actions = {e["action"] for e in events}
     assert {"evict", "rejoin", "join", "stall", "nan"} <= actions, actions
+
+
+def test_stall_start_and_end_revoke_the_prefetch():
+    """A stall changes a speed factor that a staged plan was costed with:
+    the controller revokes the prefetch at the stall's start and at its
+    end, as the reference's does. The pipelined run equals the sequential
+    one exactly and is held to the reference's."""
+    faults = "1:stall:0:2"          # replica 0 stalls before mega-batch 1, recovers before 3
+    revoked = []
+    tr, test = E.port_trainer("adaptive")
+    invalidate = tr.invalidate_prefetch
+
+    def counted():
+        revoked.append(tr._staged is not None)
+        invalidate()
+
+    tr.invalidate_prefetch = counted
+    kw = dict(n_mb=4, schedule=None, faults=faults)
+    port_run = E.run_port("adaptive", trainer=(tr, test), **kw)
+    assert revoked == [True, True]
+    assert [(e["mb"], e["action"]) for e in port_run[2]] == [(1, "stall"), (3, "stall_recovered")]
+    off, off_test = E.port_trainer("adaptive")
+    off.overlap = False
+    off_run = E.run_port("adaptive", trainer=(off, off_test), **kw)
+    wall = ("wall_clock", "wall_s")
+    assert ([{k: v for k, v in r.items() if k not in wall} for r in port_run[1].records]
+            == [{k: v for k, v in r.items() if k not in wall} for r in off_run[1].records])
+    E.assert_runs_match(port_run, E.run_ref("adaptive", **kw), n_mb=4)

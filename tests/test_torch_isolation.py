@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
-checkpoint store and the fleet controller among them) loads neither JAX
-nor any module of the reference package, builds no kernel, and the
-trainer refuses to fall back to the CPU when no card is present."""
+checkpoint store, the fleet controller and the overlap pipeline's staging
+modules among them) loads neither JAX nor any module of the reference
+package, builds no kernel, and the trainer refuses to fall back to the CPU
+when no card is present."""
 from __future__ import annotations
 
 import os
@@ -32,6 +33,9 @@ print(_build.library.cache_info().currsize)
 # the elastic-membership modules, each imported by the walk above
 ELASTIC_MODULES = ("repro_torch.checkpoint.store", "repro_torch.core.fleet",
                    "repro_torch.core.trainer", "repro_torch.launch.train")
+# the overlap pipeline's staging modules, likewise
+OVERLAP_MODULES = ("repro_torch.data.batcher", "repro_torch.data.providers",
+                   "repro_torch.data.tokens")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -42,7 +46,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     ).stdout.splitlines()
     n_modules, bad, names, n_loaded = int(out[0]), out[1], out[2].split(","), int(out[3])
     assert n_modules >= 25, n_modules   # the walk really saw the package
-    for module in ELASTIC_MODULES:
+    for module in ELASTIC_MODULES + OVERLAP_MODULES:
         assert module in names, module
     assert bad == "", f"the port imported {bad}"
     assert n_loaded == 0                # nothing was built or loaded
@@ -69,10 +73,11 @@ def test_serve_launcher_without_device_needs_cuda(monkeypatch):
         serve.main(["--arch", "llama3.2-1b", "--reduced", "--gen", "1", "--context", "2"])
 
 
-@pytest.mark.parametrize("module", ELASTIC_MODULES)
+@pytest.mark.parametrize("module", ELASTIC_MODULES + OVERLAP_MODULES)
 def test_elastic_module_alone_loads_no_jax_and_no_reference(module):
-    """Each elastic-membership module imported on its own, in a fresh
-    interpreter: nothing of JAX or of the reference comes in with it."""
+    """Each elastic-membership and staging module imported on its own, in
+    a fresh interpreter: nothing of JAX or of the reference comes in with
+    it."""
     probe = (f"import sys, {module}\n"
              "print(','.join(sorted(m for m in sys.modules if m == 'jax' or m == 'repro'"
              " or m.startswith(('jax.', 'jaxlib', 'repro.')))))")
@@ -92,6 +97,18 @@ def test_launcher_without_device_needs_cuda_with_elastic_flags(monkeypatch, tmp_
         train.main(["--workload", "xml", "--samples", "64", "--features", "256", "--avg-nnz", "16",
                     "--classes", "8", "--megabatches", "1", "--elastic-schedule", "0:2,1:3",
                     "--faults", "0:join", "--checkpoint-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("overlap", ["on", "off"])
+def test_train_launcher_overlap_flag_without_device_needs_cuda(monkeypatch, overlap):
+    """Either setting of ``--overlap`` runs on the card or raises: the
+    pipeline's staging slots change nothing of the device rule."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--workload", "xml", "--samples", "64", "--features", "256", "--avg-nnz", "16",
+                    "--classes", "8", "--megabatches", "1", "--overlap", overlap])
 
 
 def test_lm_train_launcher_without_device_needs_cuda(monkeypatch):

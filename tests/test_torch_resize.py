@@ -231,3 +231,49 @@ def test_resize_schedule_validation_matches_reference(bad):
         tr._validate_resize_schedule(bad)
     good = {"0": 4, 3: 2.0, 7: 6}
     assert tr._validate_resize_schedule(good) == jtr._validate_resize_schedule(good)
+
+
+# --------------------------------------------------------------------------
+# a resize and the overlap pipeline's prefetch
+# --------------------------------------------------------------------------
+
+
+def test_resize_invalidates_pending_prefetch():
+    """A resize at the boundary revokes the plan staged for the old
+    population and rolls the cursors back, as the reference's does:
+    continuing at the new width matches a run that never prefetched, and
+    the reference's run after its own revocation."""
+    def go(prefetch):
+        tr, _ = E.port_trainer("adaptive")
+        tr.overlap = prefetch
+        state, _ = tr.run_megabatch(tr.init_state(), prefetch=prefetch)
+        assert (tr._staged is not None) == prefetch
+        state = tr.resize(state, 6)
+        assert tr._staged is None
+        state, info = tr.run_megabatch(state)
+        return tr, state, info
+
+    (tr_p, s_p, info_p), (tr_s, s_s, info_s) = go(True), go(False)
+    assert info_p == info_s
+    assert tr_p.provider.state_dict() == tr_s.provider.state_dict()
+    np.testing.assert_array_equal(tr_p.scheduler.clock.t, tr_s.scheduler.clock.t)
+    for k in s_p.global_model:
+        assert torch.equal(s_p.global_model[k], s_s.global_model[k])
+    jtr, _ = E.ref_trainer("adaptive")
+    j_state, _ = jtr.run_megabatch(jtr.init_state(), prefetch=True)
+    j_state, j_info = jtr.run_megabatch(jtr.resize(j_state, 6))
+    for k in E.EXACT:
+        assert info_p[k] == j_info[k], k
+    assert tr_p.provider.state_dict() == jtr.provider.state_dict()
+    np.testing.assert_array_equal(tr_p.scheduler.clock.t, jtr.scheduler.clock.t)
+
+
+def test_constant_schedule_keeps_prefetch():
+    """A resize to the current R is a no-op boundary: the staged plan
+    survives it (the constant schedule's bit-identity is held above)."""
+    tr, _ = E.port_trainer("adaptive")
+    state, _ = tr.run_megabatch(tr.init_state(), prefetch=True)
+    staged = tr._staged
+    assert staged is not None
+    assert tr.resize(state, tr.cfg.n_replicas) is state
+    assert tr._staged is staged
