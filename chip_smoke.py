@@ -135,12 +135,35 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    mega-batches 2-4), the device busy share over one more warm mega-batch
    under the profiler, the host's staging time (plan, pack, upload) and
    bytes a mega-batch, and peak device memory.
+12. measured — the measured speed model (``MeasuredSpeedModel``: the
+   paper's §3.1 loop, plans on relative speeds from real mega-batch
+   times). (a) Phase 4's small width, Adaptive SGD, R = 4, the pipeline on,
+   6 mega-batches through a resize 4 -> 6 -> 3, on the card with a timer
+   that records its readings of ``time.perf_counter``; a CPU run of the
+   port replays those readings through a scripted timer: host decisions
+   and factors identical every mega-batch, losses and model within 1e-4.
+   (b) Phase 5's width and data, 8 mega-batches with evaluation, the
+   pipeline on and then off: per mega-batch the measured window, the
+   rounds' device time (CUDA events), the evaluation's device time and
+   its estimated share inside the next window, factors, b and u; every
+   window at least the rounds' device time, every factor finite, one
+   ``weighted_merge`` launch a leaf a barrier. (c) The same with
+   ``keep_global_copies=False`` (pipeline on): ``init_state`` allocates one
+   model less (the global and prev-global copies share one set of
+   tensors), within 1 MB, peak memory beside (b)'s, and the first two
+   barriers launch ``weighted_merge``'s no-momentum branch (counted by the
+   wrapper), the rest its momentum branch. (d) Phase 4's width, Nesterov
+   (momentum 0.9) and clipping (1.0), on the row-sparse and the dense
+   (``spmm_grad_w``) path, card against CPU within 1e-4. (e) Phase 5's
+   8,192-sample dataset through ``write_libsvm`` and ``read_libsvm``: the
+   arrays back equal (the values as their 6-digit text), seconds and bytes.
 
 Then one JSON line with every kernel's numbers (weighted_merge's from
 phase 3's f32 w2 leaf, with phase 9's full-width barrier under
 ``lm_barrier``, per barrier, and its launches on every path; spmm's and
-spmm_grad_w's launches on theirs, under ``launches_by_path``; phase 11's
-runs among them), and as
+spmm_grad_w's launches on theirs, under ``launches_by_path``; phase 11's and
+12's runs among them, with weighted_merge's no-momentum launches of phase
+12 (b, c) under ``no_momentum_launches_by_path``), and as
 the last line
 ``{"ok": true, "device": {...}}``. The data are synthetic, drawn from
 ``SEED``; the weights are random.
@@ -1047,7 +1070,299 @@ def overlap_phase(reset_counts, read_counts, full_model, full_provider, test_bat
     return {label: run["launches"] for label, run in runs.items()}
 
 
-    return runs
+# phase 12's settings. (a) phase 4's small width (512 features, 128
+# classes, hidden 32, b_max 32, mega_batch 10), Adaptive SGD, R = 4, overlap
+# on, 6 mega-batches through a resize 4 -> 6 -> 3, held to phase 4's 1e-4;
+# (b) and (c) phase 5's width and data, R = 4, b_max 256, mega_batch 20, 8
+# mega-batches with evaluation after each; (d) phase 4's width, 2
+# mega-batches, its 1e-4.
+MEASURED_SCHEDULE = {0: 4, 2: 6, 4: 3}
+MEASURED_SMALL_MB = 6
+MEASURED_MB = 8
+MEASURED_TOL = 1e-4
+ALLOC_SLACK = 1 << 20       # allocator rounding, bytes
+
+
+class RecordingTimer:
+    """``time.perf_counter``, keeping every reading."""
+
+    def __init__(self):
+        self.readings = []
+
+    def __call__(self) -> float:
+        t = time.perf_counter()
+        self.readings.append(t)
+        return t
+
+
+class ScriptedTimer:
+    """Hands out recorded readings in order; raises past the last."""
+
+    def __init__(self, readings):
+        self.readings, self.calls = list(readings), 0
+
+    def __call__(self) -> float:
+        if self.calls >= len(self.readings):
+            raise RuntimeError(f"replay read the timer {self.calls + 1} times; "
+                               f"the card's run read it {len(self.readings)} times")
+        self.calls += 1
+        return self.readings[self.calls - 1]
+
+
+class SpeedProbe:
+    """``run``'s checkpoint hook: the speed model's factors and
+    observation counts after each mega-batch."""
+
+    def __init__(self):
+        self.rows = []
+
+    def maybe_save(self, trainer, state):
+        self.rows.append((np.array(trainer.speed.factors, np.float64),
+                          np.array(trainer.speed.n_obs, np.int64)))
+
+    def wait(self):
+        pass
+
+
+def measured_phase(reset_counts, read_counts, full_model, full_provider, test_batches,
+                   small_model, small_provider, small_test, dataset, card: str) -> dict:
+    """Phase 12: the measured speed model (the paper's §3.1 loop) on the
+    card, ``keep_global_copies=False``, Nesterov and clipping, and libSVM
+    I/O at full width. Returns each run's kernel launches by path."""
+    import tempfile
+
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.core.heterogeneity import MeasuredSpeedModel
+    from repro_torch.core.trainer import ElasticTrainer
+    from repro_torch.data.libsvm import read_libsvm, write_libsvm
+    from repro_torch.kernels.weighted_merge.ops import merge_cuda
+    from repro_torch.optim.sgd import SGDConfig
+
+    R = 4
+    launches = {}
+
+    def small_trainer(where, timer=None, sgd=None, sparse=True):
+        speed = MeasuredSpeedModel(R, timer=timer) if timer is not None else None
+        return ElasticTrainer(small_model(), small_provider(), ElasticConfig.from_bmax(
+            32, n_replicas=R, mega_batch=10), sgd=sgd or SGDConfig(), base_lr=0.5, seed=SEED,
+            device=where, speed=speed, sparse_grads=sparse)
+
+    def expect(label, counts, want):
+        print(f"measured {label} launches: {counts} (expected {want})")
+        if any(counts[k] != v for k, v in want.items()):
+            raise RuntimeError(f"measured {label}: launch counts {counts} != expected {want}")
+
+    # ---- (a) the card's loop against a CPU replay of its clock ----
+    timer = RecordingTimer()
+    tr = small_trainer("cuda", timer)
+    probe = SpeedProbe()
+    reset_counts()
+    state, mlog = tr.run(MEASURED_SMALL_MB, test_batches=small_test,
+                         resize_schedule=MEASURED_SCHEDULE, checkpoint=probe)
+    torch.cuda.synchronize()
+    launches["replay"] = read_counts()
+    card_run = (mlog.records, {k: v.cpu() for k, v in state.global_model.items()}, probe.rows)
+    n_rounds = sum(r["n_rounds"] for r in mlog.records)
+    resizes = sum(1 for a, b in zip(mlog.records, mlog.records[1:])
+                  if a["n_replicas"] != b["n_replicas"])
+    expect("(a)", launches["replay"], {
+        "spmm": n_rounds + len(mlog.records) * len(small_test),
+        "weighted_merge": len(state.global_model) * (len(mlog.records) + resizes)})
+    replay = ScriptedTimer(timer.readings)
+    tr_cpu = small_trainer("cpu", replay)
+    probe_cpu = SpeedProbe()
+    state_cpu, mlog_cpu = tr_cpu.run(MEASURED_SMALL_MB, test_batches=small_test,
+                                     resize_schedule=MEASURED_SCHEDULE, checkpoint=probe_cpu)
+    if replay.calls != len(timer.readings) or len(timer.readings) != 2 * MEASURED_SMALL_MB:
+        raise RuntimeError(f"measured (a): the card read the timer {len(timer.readings)} "
+                           f"times, the replay {replay.calls}")
+    check_host_decisions("measured (a) card vs CPU replay", card_run[0], mlog_cpu.records)
+    for mb, ((f, n), (f_cpu, n_cpu)) in enumerate(zip(card_run[2], probe_cpu.rows), 1):
+        if not (np.array_equal(f, f_cpu) and np.array_equal(n, n_cpu)):
+            raise RuntimeError(f"measured (a): factors differ at mega-batch {mb}: "
+                               f"{f} vs {f_cpu}")
+    l_err = loss_err(card_run[0], mlog_cpu.records)
+    m_err = model_err(card_run[1], state_cpu.global_model)
+    for rec, (f, n) in zip(card_run[0], card_run[2]):
+        print(f"measured (a) mb={rec['megabatch']} R={rec['n_replicas']} u={rec['u']} "
+              f"b={rec['b']} factors={np.round(f, 4).tolist()} n_obs={n.tolist()}")
+    windows = [b - a for a, b in zip(timer.readings[::2], timer.readings[1::2])]
+    print(f"measured (a) small width, card vs CPU replay of its {len(timer.readings)} "
+          f"timer readings (windows {np.round(windows, 4).tolist()} s): host decisions and "
+          f"factors identical over {len(card_run[0])} mega-batches (R "
+          f"{[r['n_replicas'] for r in card_run[0]]}); loss rel err {l_err:.3g}, global model "
+          f"err {m_err:.3g} (tol {MEASURED_TOL})")
+    if max(l_err, m_err) > MEASURED_TOL:
+        raise RuntimeError("measured (a): the card and its CPU replay disagree")
+    del tr, tr_cpu, state, state_cpu
+    torch.cuda.empty_cache()
+
+    # ---- (b) full width, the pipeline on and off; (c) without the copies ----
+    def full_run(label, overlap, keep):
+        timer = RecordingTimer()
+        tr = ElasticTrainer(full_model(), full_provider(), ElasticConfig.from_bmax(
+            256, n_replicas=R, mega_batch=20), base_lr=0.05, seed=SEED, device="cuda",
+            speed=MeasuredSpeedModel(R, timer=timer), overlap=overlap,
+            keep_global_copies=keep)
+        rounds, evals, init = [], [], {}
+        dispatch, evaluate_async, init_state = (tr._dispatch_rounds, tr.evaluate_async,
+                                                tr.init_state)
+
+        def timed_dispatch(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = dispatch(*args, **kw)
+            end.record()
+            rounds.append((start, end))
+            return out
+
+        def timed_evaluate(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t_issue = time.perf_counter()
+            start.record()
+            out = evaluate_async(*args, **kw)
+            end.record()
+            evals.append((t_issue, start, end))
+            return out
+
+        def measured_init():
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            state = init_state()
+            torch.cuda.synchronize()
+            init["allocated"] = torch.cuda.memory_allocated() - before
+            init["model_bytes"] = sum(v.numel() * v.element_size()
+                                      for v in state.replicas.values()) // R
+            return state
+
+        tr._dispatch_rounds, tr.evaluate_async, tr.init_state = (
+            timed_dispatch, timed_evaluate, measured_init)
+        probe = SpeedProbe()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        merge_cuda.no_momentum_launches = 0
+        state, mlog = tr.run(MEASURED_MB, test_batches=test_batches, checkpoint=probe)
+        torch.cuda.synchronize()
+        counts = dict(read_counts(), weighted_merge_no_momentum=merge_cuda.no_momentum_launches)
+        peak = torch.cuda.max_memory_allocated()
+        recs = mlog.records
+        n_leaves = len(state.global_model)
+        expect(label, counts, {
+            "spmm": sum(r["n_rounds"] for r in recs) + len(recs) * len(test_batches),
+            "weighted_merge": n_leaves * len(recs),
+            "weighted_merge_no_momentum": 0 if keep else 2 * n_leaves,
+            "spmm_grad_w": 0})
+        win = [b - a for a, b in zip(timer.readings[::2], timer.readings[1::2])]
+        dev = [s.elapsed_time(e) / 1e3 for s, e in rounds]
+        ev = [(t, s.elapsed_time(e) / 1e3) for t, s, e in evals]
+        begins = timer.readings[::2]
+        print(f"measured {label} on: {card}")
+        for i, rec in enumerate(recs):
+            # the evaluation issued after mega-batch i runs on the device at
+            # the start of window i + 1 (the stream is serial, and the host
+            # synced just before issuing it): its device time past the
+            # window's opening, from the host clock
+            in_window = 0.0
+            if 0 < i <= len(ev):
+                t_issue, d = ev[i - 1]
+                in_window = max(0.0, min(d, t_issue + d - begins[i]))
+            f, n = probe.rows[i]
+            print(f"measured {label} mb={rec['megabatch']} window={win[i]:.4f} s "
+                  f"rounds_device={dev[i]:.4f} s eval_device="
+                  f"{ev[i - 1][1] if 0 < i <= len(ev) else 0.0:.4f} s "
+                  f"eval_in_window~{in_window:.4f} s n_rounds={rec['n_rounds']} "
+                  f"u={rec['u']} b={rec['b']} factors={np.round(f, 5).tolist()} "
+                  f"n_obs={n.tolist()} loss={rec['train_loss']:.6f}")
+            if not np.all(np.isfinite(f)):
+                raise RuntimeError(f"measured {label}: a non-finite factor {f}")
+            if win[i] < dev[i]:
+                raise RuntimeError(f"measured {label}: window {win[i]} s shorter than the "
+                                   f"rounds' device time {dev[i]} s")
+        losses = [r[k] for r in recs for k in ("train_loss", "test_loss")]
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"measured {label}: non-finite loss {losses}")
+        print(f"measured {label}: windows {np.round(win, 4).tolist()} s, rounds' device "
+              f"{np.round(dev, 4).tolist()} s, evaluations' device "
+              f"{np.round([d for _, d in ev], 4).tolist()} s; init allocated "
+              f"{init['allocated'] / 1e9:.4f} GB, peak {peak / 1e9:.2f} GB")
+        out = dict(counts=counts, init=init, peak=peak, windows=win, rounds=dev)
+        del tr, state
+        torch.cuda.empty_cache()
+        return out
+
+    full = {"(b) overlap": full_run("(b) overlap", True, True),
+            "(b) sequential": full_run("(b) sequential", False, True),
+            "(c) lean": full_run("(c) lean", True, False)}
+    kept, lean = full["(b) overlap"], full["(c) lean"]
+    saved = kept["init"]["allocated"] - lean["init"]["allocated"]
+    model_bytes = kept["init"]["model_bytes"]
+    # the global and prev-global copies are one set of tensors (the initial
+    # weights), in the reference as here: dropping them frees one model
+    print(f"measured (c): init_state allocates {kept['init']['allocated']} B with the "
+          f"copies, {lean['init']['allocated']} B without: {saved} B less, one model is "
+          f"{model_bytes} B (global and prev-global share it); peak "
+          f"{lean['peak'] / 1e9:.3f} GB against (b)'s {kept['peak'] / 1e9:.3f} GB")
+    if abs(saved - model_bytes) > ALLOC_SLACK:
+        raise RuntimeError(f"measured (c): {saved} B freed, not the model's {model_bytes} B")
+    for label, run in full.items():
+        launches[label] = run["counts"]
+
+    # ---- (d) Nesterov and clipping, the card against the CPU ----
+    for name, sgd in (("nesterov", SGDConfig(momentum=0.9, nesterov=True)),
+                      ("grad_clip", SGDConfig(grad_clip=1.0))):
+        for sparse in (True, False):
+            label = f"(d) {name} {'sparse' if sparse else 'dense'}"
+            runs = []
+            for where in ("cuda", "cpu"):
+                tr = small_trainer(where, sgd=sgd, sparse=sparse)
+                if where == "cuda":
+                    reset_counts()
+                state, mlog = tr.run(2, test_batches=small_test)
+                if where == "cuda":
+                    torch.cuda.synchronize()
+                    launches[label] = read_counts()
+                runs.append((mlog.records, {k: v.cpu() for k, v in state.global_model.items()}))
+            (recs, model), (cpu_recs, cpu_model) = runs
+            n_rounds = sum(r["n_rounds"] for r in recs)
+            expect(label, launches[label], {
+                "spmm": n_rounds + len(recs) * len(small_test),
+                "spmm_grad_w": 0 if sparse else n_rounds,
+                "weighted_merge": len(model) * len(recs)})
+            check_host_decisions(f"measured {label} card vs CPU", recs, cpu_recs)
+            l_err, m_err = loss_err(recs, cpu_recs), model_err(model, cpu_model)
+            print(f"measured {label} card vs cpu: host decisions identical over {len(recs)} "
+                  f"mega-batches; loss rel err {l_err:.3g}, global model err {m_err:.3g} "
+                  f"(tol {MEASURED_TOL})")
+            if max(l_err, m_err) > MEASURED_TOL:
+                raise RuntimeError(f"measured {label}: card and CPU runs disagree")
+
+    # ---- (e) libSVM at full width ----
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "amazon_like.svm")
+        t0 = time.perf_counter()
+        write_libsvm(dataset, path)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = read_libsvm(path)
+        t_read = time.perf_counter() - t0
+    for k in ("indptr", "indices", "label_ptr", "labels"):
+        if not np.array_equal(getattr(back, k), getattr(dataset, k)):
+            raise RuntimeError(f"libsvm: {k} did not survive the round trip")
+    # values pass through the format's 6 significant digits, exactly
+    text_values = np.array([float(f"{float(v):.6g}") for v in dataset.values], np.float32)
+    if ((back.n_features, back.n_classes) != (dataset.n_features, dataset.n_classes)
+            or not np.array_equal(back.values, text_values)):
+        raise RuntimeError("libsvm: values or sizes did not survive the round trip")
+    rel = float(np.max(np.abs(back.values - dataset.values) / np.abs(dataset.values)))
+    print(f"libsvm: {dataset.n_samples} samples, {len(dataset.indices)} features, "
+          f"{len(dataset.labels)} labels; write {t_write:.3f} s, read {t_read:.3f} s, "
+          f"file {size} bytes ({size / t_write / 1e6:.1f} MB/s written, "
+          f"{size / t_read / 1e6:.1f} MB/s read); arrays equal, values as the "
+          f"text's 6 digits (max rel change {rel:.3g})")
+    return launches
 
 
 def main() -> int:
@@ -1958,6 +2273,24 @@ def main() -> int:
         test_batches=test_batches, card=smi,
     )
 
+    # ---- 12. the measured speed model, memory-lean merging, Nesterov and
+    # clipping, libSVM ----
+    measured = measured_phase(
+        reset_counts, read_counts,
+        full_model=lambda: model_from(p_full, cfg_full),
+        full_provider=lambda: SparseProvider.make(train, seed=SEED),
+        test_batches=test_batches,
+        small_model=lambda: model_from(p0, XMLMLPConfig(**small)),
+        small_provider=lambda: SparseProvider.make(strain, seed=SEED),
+        small_test=SparseProvider.make(strain, seed=SEED).test_batches(stest, 32),
+        dataset=ds, card=smi,
+    )
+    measured_paths = {
+        "replay": "xml_measured_replay", "(b) overlap": "xml_measured_on",
+        "(b) sequential": "xml_measured_off", "(c) lean": "xml_measured_lean",
+        "(d) nesterov sparse": "xml_nesterov", "(d) nesterov dense": "xml_nesterov_dense",
+        "(d) grad_clip sparse": "xml_grad_clip", "(d) grad_clip dense": "xml_grad_clip_dense"}
+
     sources = {
         "spmm": ("src/repro_torch/csrc/spmm.cu", "src/repro/kernels/spmm/spmm.py:74"),
         "weighted_merge": ("src/repro_torch/csrc/weighted_merge.cu",
@@ -1992,10 +2325,23 @@ def main() -> int:
     results["spmm_grad_w"]["launches_by_path"] = {
         "xml_dense": launches["spmm_grad_w"],
         "xml_elastic_dense": elastic["dense"]["spmm_grad_w"]}
+    # phase 12's runs: the card's measured loop (a), full width with the
+    # pipeline on and off (b) and without the global copies (c), Nesterov
+    # and clipping (d); weighted_merge's no-momentum launches beside
+    for label, path in measured_paths.items():
+        counts = measured[label]
+        for name in ("weighted_merge", "spmm"):
+            results[name]["launches_by_path"][path] = counts[name]
+        if counts["spmm_grad_w"]:
+            results["spmm_grad_w"]["launches_by_path"][path] = counts["spmm_grad_w"]
+    results["weighted_merge"]["no_momentum_launches_by_path"] = {
+        measured_paths[label]: measured[label]["weighted_merge_no_momentum"]
+        for label in ("(b) overlap", "(b) sequential", "(c) lean")}
     for name in ("weighted_merge", "spmm", "spmm_grad_w"):
         launches[name] = sum(results[name]["launches_by_path"].values())
-    results["spmm_grad_w"]["sort"]["launches"] = (dense_launches["sort_rows"]
-                                                 + elastic["dense"]["sort_rows"])
+    results["spmm_grad_w"]["sort"]["launches"] = (
+        dense_launches["sort_rows"] + elastic["dense"]["sort_rows"]
+        + sum(counts["sort_rows"] for counts in measured.values()))
     launches.update(lm_launches)
     kernels = []
     for name, r in results.items():

@@ -16,9 +16,11 @@ from .base import Algorithm, MergeOutcome, StateExtras, register
 
 @register("adaptive")
 class AdaptiveSGD(Algorithm):
-    def init_state_extras(self, cfg, params):
+    def init_state_extras(self, cfg, params, keep_global_copies):
         b = np.full(cfg.n_replicas, float(cfg.b_max))
-        return StateExtras(b=b, global_model=params, prev_global=params)
+        if keep_global_copies:
+            return StateExtras(b=b, global_model=params, prev_global=params)
+        return StateExtras(b=b)  # §4 memory-lean merging
 
     def plan(self, scheduler, state, mega_samples, fetch_fn):
         return self._plan_dynamic(scheduler, state, mega_samples, fetch_fn)
@@ -37,7 +39,7 @@ class AdaptiveSGD(Algorithm):
             alphas,
             state.global_model,
             state.prev_global,
-            cfg.gamma,
+            cfg.gamma if state.global_model is not None else 0.0,
         )
         return MergeOutcome(
             replicas=new_replicas,

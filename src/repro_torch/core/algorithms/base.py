@@ -11,7 +11,7 @@ registry resolves from ``cfg.algorithm``.
 Hooks (host-side, except the ``RoundTransforms`` callables, which run
 inside every round):
 
-  * ``init_state_extras(cfg, params)`` → ``StateExtras``
+  * ``init_state_extras(cfg, params, keep_global_copies)`` → ``StateExtras``
   * ``plan(scheduler, state, mega_samples, fetch_fn)`` → ``MegaBatchPlan``
   * ``round_transforms(cfg)`` → ``RoundTransforms``
   * ``merge(trainer, state, plan, replicas)`` → ``MergeOutcome``; the
@@ -111,8 +111,9 @@ class Algorithm:
     resize_policy: str = "merge"
 
     # ---- state ----
-    def init_state_extras(self, cfg, params) -> StateExtras:
-        """``params`` is None when ``resize_b`` sizes joiners."""
+    def init_state_extras(self, cfg, params, keep_global_copies: bool) -> StateExtras:
+        """``params`` is None (and ``keep_global_copies`` False) when
+        ``resize_b`` sizes joiners."""
         # paper: initialize at b_max (Fig. 10a)
         return StateExtras(b=np.full(cfg.n_replicas, float(cfg.b_max)))
 
@@ -164,7 +165,7 @@ class Algorithm:
 
         Default: survivors keep their adapted values (Algorithm 1 resumes
         from them at the new R on the next ``adapt``); joiners start at the
-        algorithm's initial batch size (``init_state_extras(cfg, None)``)
+        algorithm's initial batch size (``init_state_extras(cfg, None, False)``)
         with the linear-scaling learning rate. A shrink consults nothing.
         """
         new_R = cfg.n_replicas
@@ -174,7 +175,7 @@ class Algorithm:
         new_lr = np.empty(new_R, np.float64)
         new_lr[:keep] = np.asarray(lr, np.float64)[:keep]
         if new_R > keep:
-            init_b = np.asarray(self.init_state_extras(cfg, None).b, np.float64)
+            init_b = np.asarray(self.init_state_extras(cfg, None, False).b, np.float64)
             new_b[keep:] = init_b[keep:new_R]
             new_lr[keep:] = base_lr * new_b[keep:] / cfg.b_max
         return new_b, new_lr

@@ -29,14 +29,14 @@ def mean_grads(grads, update_mask):
 
 @register("sync")
 class GradientAggregation(Algorithm):
-    def init_state_extras(self, cfg, params):
+    def init_state_extras(self, cfg, params, keep_global_copies):
         b0 = max(cfg.b_min, cfg.b_max // cfg.n_replicas)
         return StateExtras(b=np.full(cfg.n_replicas, float(b0)))
 
     def resize_b(self, cfg, b, lr, base_lr):
         """The share b_max/R depends on R itself: a membership change
         re-derives everyone's batch size and linear-scaled lr."""
-        new_b = np.asarray(self.init_state_extras(cfg, None).b, np.float64)
+        new_b = np.asarray(self.init_state_extras(cfg, None, False).b, np.float64)
         return new_b, base_lr * new_b / cfg.b_max
 
     def round_transforms(self, cfg):

@@ -1,8 +1,8 @@
 """Dynamic scheduler: the paper's availability-driven batch dispatch,
 reformulated as *masked lockstep rounds*.
 
-Copied from ``repro/core/scheduler.py`` (``Dispatch``, ``MegaBatchPlan``,
-``DynamicScheduler`` with its ``resize``).
+Copied from ``repro/core/scheduler.py`` (``Dispatch``, ``MegaBatchPlan`` with
+``per_replica_work``, ``DynamicScheduler`` with its ``resize``).
 
 Paper (§3.1): batches are dispatched one-by-one to whichever GPU finishes
 first, until a mega-batch worth of samples has been consumed; the number of
@@ -49,6 +49,14 @@ class MegaBatchPlan:
     n_rounds: int
     barrier_time: float      # virtual time when the merge can start
     samples: int
+
+    def per_replica_work(self, n_replicas: int) -> np.ndarray:
+        """(R,) total work units dispatched to each replica — the
+        denominator when a MeasuredSpeedModel attributes wall time."""
+        out = np.zeros(n_replicas, np.float64)
+        for d in self.dispatches:
+            out[d.replica] += d.work
+        return out
 
     def payload_grid(self, n_replicas: int) -> list[list]:
         """Dense (n_rounds, R) grid of payloads; ``None`` = masked slot.

@@ -60,8 +60,23 @@ to the snapshot taken before it was planned (a resize, an eviction, a
 stall's start or end, a restore), and a checkpoint taken while it is
 staged stores that snapshot, so a restore replays it. ``run`` evaluates
 asynchronously: the test set is uploaded once, evaluation is issued at a
-boundary and collected at the next. The reference's measured speed model,
-its per-shard timers and host spans are not ported.
+boundary and collected at the next.
+
+The speed model behind the scheduler's virtual clock is the simulated
+``SpeedModel`` (the default) or a ``MeasuredSpeedModel``, which closes the
+paper's §3.1 feedback loop: each mega-batch's window, from ``begin`` just
+before its rounds are issued (the sequential path: before its pack and
+upload) to ``elapsed`` just after their metrics are collected, is
+attributed per replica by its scheduled share
+(``_observe_window``), and the next plan runs on those relative speeds.
+The timer is read exactly twice a mega-batch, at the reference's points,
+so the same readings give the same plans. Under the pipeline plan N+1 is
+made before window N is observed (one window stale), as in the reference.
+``keep_global_copies=False`` is the paper's §4 memory-lean merging: the
+algorithms that keep global/prev-global copies (``adaptive``,
+``elastic``) start without them and merge without the momentum term until
+their barriers have produced both. The reference's per-shard timers
+(``ShardWindowTimer``) and host spans are not ported.
 
 Device rule: ``device=None`` means CUDA and raises where there is none;
 the CPU runs only when asked for (``device="cpu"``), as the tests do. On
@@ -83,7 +98,7 @@ from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import adaptive_sgd as asgd
 from repro_torch.core import algorithms
-from repro_torch.core.heterogeneity import CostModel, SpeedModel
+from repro_torch.core.heterogeneity import CostModel, MeasuredSpeedModel, SpeedModel
 from repro_torch.core.scheduler import DynamicScheduler
 from repro_torch.data.batcher import StagingBuffers
 from repro_torch.models.protocol import TrainableModel
@@ -204,13 +219,14 @@ class ElasticTrainer:
     cfg: ElasticConfig
     sgd: SGDConfig = field(default_factory=SGDConfig)
     base_lr: float = 0.05
-    speed: Optional[SpeedModel] = None
+    speed: Optional[SpeedModel | MeasuredSpeedModel] = None
     seed: int = 0
     device: Any = None               # None = CUDA (raises without a card)
     engine: str = "scan"             # 'scan' | 'legacy_loop' (see module doc)
     sparse_grads: bool = True        # use the model's row-sparse grad path if
                                      # it provides one; False = dense autograd
     merge_cost: float = MERGE_COST   # virtual seconds per merge (all-reduce)
+    keep_global_copies: bool = True  # False = paper §4 memory-lean merging
     overlap: bool = True             # overlapped mega-batch pipeline (module
                                      # doc); scan engine only; False = the
                                      # sequential oracle
@@ -266,7 +282,7 @@ class ElasticTrainer:
         self.init_seconds = time.perf_counter() - t0
         replicas = tu.tree_broadcast_replicas(params, R)
         momentum = init_momentum(replicas, self.sgd)
-        extras = self.algo.init_state_extras(self.cfg, params)
+        extras = self.algo.init_state_extras(self.cfg, params, self.keep_global_copies)
         b = np.asarray(extras.b, np.float64)
         lr = self.base_lr * b / self.cfg.b_max  # linear-scaling rule
         return ElasticState(
@@ -618,6 +634,11 @@ class ElasticTrainer:
         t0 = time.perf_counter()
         plan = self.algo.plan(self.scheduler, state, mega_samples, fetch)
         plan_s = time.perf_counter() - t0
+        # measured-speed feedback: the window brackets the rounds (the
+        # engines read their metrics back before returning), so the next
+        # plan runs on the relative speeds this one observed
+        measure = isinstance(self.speed, MeasuredSpeedModel)
+        t_start = self.speed.begin() if measure else None
         if self.engine == "legacy_loop":
             replicas, momentum, train_loss, train_acc = self._run_rounds_legacy(
                 state, plan, b_slots)
@@ -625,6 +646,8 @@ class ElasticTrainer:
             replicas, momentum, train_loss, train_acc = self._run_rounds_scan(
                 state, plan, b_slots)
             self.staging_log[-1]["plan_s"] = plan_s
+        if measure:
+            self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
 
         # ---- non-finite guard: heal poisoned replicas before the barrier;
         # inert while every replica is finite ----
@@ -655,12 +678,16 @@ class ElasticTrainer:
         The host-stateful steps keep the sequential path's relative order
         (… plan N → merge-cost clock bump N → plan N+1 …), and ``merge``,
         ``adapt`` and the guard are pure functions of (state, plan, device
-        results), so the trajectory is the sequential one's."""
+        results), so the trajectory is the sequential one's under the
+        simulated speed model. Under a measured one, plan N+1 is made with
+        factors one window stale: window N is observed after the collect."""
         cfg = self.cfg
         staged = self._take_staged(state)
         if staged is None:
             staged = self._stage_megabatch(state.b, state.lr, int(state.megabatch_idx))
         plan = staged.plan
+        measure = isinstance(self.speed, MeasuredSpeedModel)
+        t_start = self.speed.begin() if measure else None
         replicas, momentum, stats = self._dispatch_rounds(
             state, staged.batches, staged.mask, staged.mask_host, staged.lr_dev)
 
@@ -676,6 +703,8 @@ class ElasticTrainer:
         train_loss, train_acc = self._finish_metrics(stats)
         # the slot's consumer is done on the device: reusable two stagings on
         self._staging.release(staged.slot_id)
+        if measure:
+            self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
 
         # ---- non-finite guard, then the merge (the barrier) ----
         guard_repaired: list[int] = []
@@ -686,6 +715,15 @@ class ElasticTrainer:
         outcome = self.algo.merge(self, state, plan, replicas)
         return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
                                       train_loss, train_acc, virtual_time, guard_repaired)
+
+    def _observe_window(self, plan, R: int, seconds: float) -> None:
+        """Feed one mega-batch's measurement window to the speed model,
+        attributed per replica by its scheduled share of the plan (the
+        whole-window path; the reference's per-shard windows come from its
+        sharded placement, which is not ported)."""
+        self.speed.observe_plan(
+            plan.per_replica_work(R), seconds, u=plan.u, n_rounds=plan.n_rounds,
+        )
 
     def _megabatch_result(self, state, plan, outcome, momentum, new_b, new_lr,
                           train_loss, train_acc, virtual_time, guard_repaired):
@@ -722,12 +760,18 @@ class ElasticTrainer:
     # ------------------------------------------------------------------
     def _cursor_snapshot(self) -> dict:
         """Copies of every host cursor a staging plan advances: the
-        provider's stream (sample RNG and position), the virtual clocks and
-        the (simulated) speed model, whose planning draws jitter."""
+        provider's stream (sample RNG and position), the virtual clocks and,
+        for the simulated speed model, whose planning draws jitter, its
+        state. A measured model is not snapshotted (``None``): planning does
+        not change it, and rolling it back would drop windows observed
+        after the snapshot."""
         return {
             "provider": copy.deepcopy(self.provider.state_dict()),
             "clock_t": np.asarray(self.scheduler.clock.t, np.float64).copy(),
-            "speed": copy.deepcopy(self.speed.state_dict()),
+            "speed": (
+                None if isinstance(self.speed, MeasuredSpeedModel)
+                else copy.deepcopy(self.speed.state_dict())
+            ),
         }
 
     def _stage_megabatch(self, b, lr, megabatch_idx: int) -> _StagedMegaBatch:
@@ -813,7 +857,8 @@ class ElasticTrainer:
         snap = s.snapshot
         self.provider.load_state_dict(snap["provider"])
         self.scheduler.clock.t[:] = snap["clock_t"]
-        self.speed.load_state_dict(snap["speed"])
+        if snap["speed"] is not None:
+            self.speed.load_state_dict(snap["speed"])
         # staged before the collect that ended the last mega-batch, so its
         # upload has completed: the slot is free to rewrite
         self._staging.release(s.slot_id)
@@ -898,8 +943,9 @@ class ElasticTrainer:
         When a mega-batch for this exact ``state`` is staged but not yet
         trained on, the cursors from before its staging plan (provider,
         clocks, speed model) are stored instead of the live ones, so a
-        restore replays it instead of skipping it. The reference's
-        host-span branch is not ported."""
+        restore replays it instead of skipping it (a measured speed model's
+        EMAs are observation history, not plan cursors, and stay live). The
+        reference's host-span branch is not ported."""
         speed_sd = self.speed.state_dict()
         provider_sd = (
             self.provider.state_dict() if hasattr(self.provider, "state_dict") else None
@@ -910,7 +956,8 @@ class ElasticTrainer:
             snap = staged.snapshot
             provider_sd = snap["provider"]
             clock_t = np.asarray(snap["clock_t"], np.float64)
-            speed_sd = snap["speed"]
+            if snap["speed"] is not None:
+                speed_sd = snap["speed"]
         tree = {
             "replicas": _nested(state.replicas),
             "momentum": _nested(state.momentum),
@@ -997,6 +1044,9 @@ class ElasticTrainer:
         tree, _ = ckpt_store.load(path, like)
         self.scheduler.clock.t[:] = np.asarray(tree["clock_t"], np.float64)
         self.speed.load_state_dict({"arrays": tree["speed"], "meta": meta["speed_meta"]})
+        if isinstance(self.speed, MeasuredSpeedModel):
+            # the first window after a restore carries one-time costs
+            self.speed.discard_next_window()
         if "provider" in meta and hasattr(self.provider, "load_state_dict"):
             self.provider.load_state_dict(meta["provider"])
 

@@ -59,10 +59,12 @@ def merge_cuda(replicas, alphas, g=None, gp=None, gamma: float = 0.0):
         )
     _build.check(err, "weighted_merge")
     merge_cuda.launches += 1
+    merge_cuda.no_momentum_launches += int(not momentum)
     return out
 
 
 merge_cuda.launches = 0  # kernel launches since the last reset
+merge_cuda.no_momentum_launches = 0  # of them, without the momentum term
 
 
 def merge_pytree(replica_tree: dict, alphas, global_tree=None, prev_tree=None,

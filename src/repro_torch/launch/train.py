@@ -5,18 +5,22 @@ paper's 3-layer sparse MLP on synthetic XML data (``--workload xml``) or a
 decoder-only LM architecture on a synthetic token stream (``--workload
 lm``, the default, with ``--arch`` default tinyllama-1.1b), with the same
 flags, defaults and log lines as the reference (the subset this port
-supports: ``--engine``, ``--overlap``, ``--dense-grads``, ``--arch``, ``--reduced``,
-``--seq-len``, and the elastic-membership, fault and checkpoint flags
+supports: ``--engine``, ``--overlap``, ``--speed``, ``--dense-grads``, ``--arch``,
+``--reduced``, ``--seq-len``, and the elastic-membership, fault and checkpoint flags
 ``--elastic-schedule``, ``--faults``, ``--min-replicas``,
 ``--max-replicas``, ``--timeout-factor``, ``--checkpoint-dir``,
 ``--checkpoint-every``, ``--checkpoint-retain`` and ``--restore-from``
 included), plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
-plain versions). The trainer logs one more line, ``init``, with the
+plain versions). ``--speed measured`` plans on relative speeds measured
+from the real mega-batch times (``MeasuredSpeedModel``) instead of the
+simulated factors. The trainer logs one more line, ``init``, with the
 seconds the initial weights took.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
       --algorithm adaptive --replicas 4 --megabatches 20
+  PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
+      --algorithm adaptive --speed measured --megabatches 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
       --reduced --algorithm adaptive --megabatches 5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
@@ -38,7 +42,7 @@ from repro_torch.configs.archs import ARCHS
 from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import algorithms
 from repro_torch.core.fleet import FleetController, parse_fault_spec
-from repro_torch.core.heterogeneity import SpeedModel
+from repro_torch.core.heterogeneity import MeasuredSpeedModel, SpeedModel
 from repro_torch.core.trainer import ENGINES, ElasticTrainer
 from repro_torch.data.providers import SparseProvider, TokenProvider
 from repro_torch.data.sparse import train_test_split
@@ -124,6 +128,12 @@ def parser() -> argparse.ArgumentParser:
                          " oracle, bit-identical on the CPU. Only the scan"
                          " engine pipelines; the legacy engine always runs"
                          " sequentially")
+    ap.add_argument("--speed", default="simulated", choices=["simulated", "measured"],
+                    help="heterogeneity source for the scheduler's virtual"
+                         " clock: simulated per-replica factors (paper Fig. 1"
+                         " reproduction, deterministic) or relative speeds"
+                         " measured from real round times (closes the paper"
+                         " §3.1 feedback loop on live hardware)")
     ap.add_argument("--dense-grads", action="store_true",
                     help="force dense autodiff instead of the row-sparse"
                          " gradient path (the differential oracle)")
@@ -199,7 +209,10 @@ def main(argv=None):
         n_replicas=algorithms.get(args.algorithm).resolve_n_replicas(args.replicas),
         mega_batch=args.mega_batch,
     )
-    speed = SpeedModel(ecfg.n_replicas, max_gap=args.hetero, seed=args.seed)
+    if args.speed == "measured":
+        speed = MeasuredSpeedModel(ecfg.n_replicas)
+    else:
+        speed = SpeedModel(ecfg.n_replicas, max_gap=args.hetero, seed=args.seed)
     trainer = ElasticTrainer(
         model=model, provider=provider, cfg=ecfg,
         base_lr=args.lr, speed=speed, seed=args.seed,

@@ -15,7 +15,9 @@ with the reference's semantics:
   and running the dense update;
 * weight decay is lazy: touched rows decay exactly once per row;
 * momentum is lazy: touched rows get ``m' = mu*m + g``, untouched rows keep
-  their momentum.
+  their momentum; Nesterov steps touched slots by ``g + mu*m'``;
+* ``grad_clip`` densifies sparse leaves first (the global norm needs the
+  duplicate-reduced gradient), so clipped configs pay the dense cost.
 """
 from __future__ import annotations
 
@@ -24,13 +26,20 @@ from typing import Optional
 
 import torch
 
-from repro_torch.optim.row_sparse import RowSparseGrad, first_occurrence, flat_rows
+from repro_torch.optim.row_sparse import (
+    RowSparseGrad,
+    densify_tree,
+    first_occurrence,
+    flat_rows,
+)
 
 
 @dataclass(frozen=True)
 class SGDConfig:
     momentum: float = 0.0
+    nesterov: bool = False
     weight_decay: float = 0.0
+    grad_clip: float = 0.0  # 0 = off; global-norm clip per replica
 
 
 def init_momentum(params: dict, cfg: SGDConfig) -> Optional[dict]:
@@ -44,6 +53,23 @@ def _per_replica(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v if v.ndim == 0 else v.reshape((-1,) + (1,) * (ndim - 1))
 
 
+def clip_by_global_norm(grads: dict, max_norm: float, replica_dim: bool) -> dict:
+    """Scale dense ``grads`` so their global L2 norm is at most
+    ``max_norm``: one norm over every leaf, or with ``replica_dim`` one per
+    replica (the leaves' leading dim). Returns new tensors."""
+    if max_norm <= 0.0:
+        return grads
+    leaves = list(grads.values())
+    if replica_dim:
+        sq = sum(l.float().square().flatten(1).sum(dim=1) for l in leaves)
+        scale = torch.clamp(max_norm / (torch.sqrt(sq) + 1e-9), max=1.0)  # (R,)
+        return {k: (l.float() * _per_replica(scale, l.ndim)).to(l.dtype)
+                for k, l in grads.items()}
+    norm = torch.sqrt(sum(l.float().square().sum() for l in leaves))
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return {k: (l * scale).to(l.dtype) for k, l in grads.items()}
+
+
 def _dense_leaf_update(p, g, m, lr, cfg: SGDConfig, update_mask):
     """The dense rule: wd -> momentum -> masked step, written into p (and m)."""
     if cfg.weight_decay:
@@ -51,7 +77,7 @@ def _dense_leaf_update(p, g, m, lr, cfg: SGDConfig, update_mask):
     new_m = None
     if m is not None:
         new_m = cfg.momentum * m + g.to(m.dtype)
-        g = new_m
+        g = g + cfg.momentum * new_m if cfg.nesterov else new_m
     delta = _per_replica(lr, p.ndim) * g.float()
     if update_mask is not None:
         delta = delta * _per_replica(update_mask, p.ndim)
@@ -90,8 +116,11 @@ def _sparse_leaf_update(p, g: RowSparseGrad, m, lr, cfg: SGDConfig, update_mask)
         m32 = m.float().view(R * n_rows, H)  # m itself when m is f32
         upd = mk * ((cfg.momentum - 1.0) * first * m32[flat].view(R, S, H) + vals)
         m32.index_add_(0, flat, torch.where(valid, upd, 0.0).view(R * S, H))
-        # touched rows after the update, once per row
-        slot_delta = first * m32[flat].view(R, S, H)
+        m_rows = m32[flat].view(R, S, H)  # touched rows after the update
+        if cfg.nesterov:  # every slot's own gradient, plus mu*m' once per row
+            slot_delta = vals + cfg.momentum * first * m_rows
+        else:             # once per row
+            slot_delta = first * m_rows
         if m32.data_ptr() != m.data_ptr():
             m.copy_(m32.view(m.shape))
     else:
@@ -112,10 +141,14 @@ def sgd_update(
 
     ``lr`` — scalar or (R,). ``update_mask`` — optional (R,) 0/1 vector:
     replicas whose virtual clock has passed the mega-batch horizon keep
-    their parameters unchanged. ``grads`` leaves may be RowSparseGrad.
-    Parameter and momentum leaves must be contiguous. Returns
+    their parameters unchanged. ``grads`` leaves may be RowSparseGrad;
+    with ``cfg.grad_clip`` > 0 they are densified and clipped per replica
+    first. Parameter and momentum leaves must be contiguous. Returns
     ``(params, momentum_state)``, the same objects, updated.
     """
+    if cfg.grad_clip > 0.0:
+        grads = densify_tree(grads)  # the clip norm needs the reduced gradient
+        grads = clip_by_global_norm(grads, cfg.grad_clip, replica_dim=True)
     any_leaf = next(iter(params.values()))
     lr = torch.as_tensor(lr, dtype=torch.float32, device=any_leaf.device)
     if update_mask is not None:

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
-checkpoint store, the fleet controller and the overlap pipeline's staging
-modules among them) loads neither JAX nor any module of the reference
-package, builds no kernel, and the trainer refuses to fall back to the CPU
-when no card is present."""
+checkpoint store, the fleet controller, the overlap pipeline's staging
+modules, the measured speed model and libSVM I/O among them) loads
+neither JAX nor any module of the reference package, builds no kernel,
+and the trainer refuses to fall back to the CPU when no card is
+present."""
 from __future__ import annotations
 
 import os
@@ -36,6 +37,11 @@ ELASTIC_MODULES = ("repro_torch.checkpoint.store", "repro_torch.core.fleet",
 # the overlap pipeline's staging modules, likewise
 OVERLAP_MODULES = ("repro_torch.data.batcher", "repro_torch.data.providers",
                    "repro_torch.data.tokens")
+# the measured speed model, libSVM I/O, the schedules, the SGD options and
+# the ten config aliases, likewise
+HOST_MODULES = ("repro_torch.core.heterogeneity", "repro_torch.data.libsvm",
+                "repro_torch.optim.schedules", "repro_torch.optim.sgd",
+                "repro_torch.configs.llama3_2_1b", "repro_torch.configs.seamless_m4t_large_v2")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -46,7 +52,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     ).stdout.splitlines()
     n_modules, bad, names, n_loaded = int(out[0]), out[1], out[2].split(","), int(out[3])
     assert n_modules >= 25, n_modules   # the walk really saw the package
-    for module in ELASTIC_MODULES + OVERLAP_MODULES:
+    for module in ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES:
         assert module in names, module
     assert bad == "", f"the port imported {bad}"
     assert n_loaded == 0                # nothing was built or loaded
@@ -73,11 +79,11 @@ def test_serve_launcher_without_device_needs_cuda(monkeypatch):
         serve.main(["--arch", "llama3.2-1b", "--reduced", "--gen", "1", "--context", "2"])
 
 
-@pytest.mark.parametrize("module", ELASTIC_MODULES + OVERLAP_MODULES)
+@pytest.mark.parametrize("module", ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES)
 def test_elastic_module_alone_loads_no_jax_and_no_reference(module):
-    """Each elastic-membership and staging module imported on its own, in
-    a fresh interpreter: nothing of JAX or of the reference comes in with
-    it."""
+    """Each elastic-membership, staging and host module imported on its
+    own, in a fresh interpreter: nothing of JAX or of the reference comes
+    in with it."""
     probe = (f"import sys, {module}\n"
              "print(','.join(sorted(m for m in sys.modules if m == 'jax' or m == 'repro'"
              " or m.startswith(('jax.', 'jaxlib', 'repro.')))))")
@@ -97,6 +103,18 @@ def test_launcher_without_device_needs_cuda_with_elastic_flags(monkeypatch, tmp_
         train.main(["--workload", "xml", "--samples", "64", "--features", "256", "--avg-nnz", "16",
                     "--classes", "8", "--megabatches", "1", "--elastic-schedule", "0:2,1:3",
                     "--faults", "0:join", "--checkpoint-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("speed", ["simulated", "measured"])
+def test_train_launcher_speed_flag_without_device_needs_cuda(monkeypatch, speed):
+    """Either speed model runs on the card or raises: the measured loop
+    adds a clock, not a CPU path."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--workload", "xml", "--samples", "64", "--features", "256", "--avg-nnz", "16",
+                    "--classes", "8", "--megabatches", "1", "--speed", speed])
 
 
 @pytest.mark.parametrize("overlap", ["on", "off"])

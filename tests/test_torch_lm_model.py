@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -71,6 +72,22 @@ def test_configs_equal_the_reference():
     assert torch_archs.XML_WORKLOADS == jax_archs.XML_WORKLOADS
     assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()}
+
+
+ALIASES = ("arctic_480b", "internvl2_2b", "jamba_1_5_large_398b", "kimi_k2_1t_a32b",
+           "llama3_2_1b", "mamba2_780m", "moonshot_v1_16b_a3b", "seamless_m4t_large_v2",
+           "stablelm_1_6b", "tinyllama_1_1b")
+
+
+@pytest.mark.parametrize("alias", ALIASES)
+def test_config_alias_equals_the_reference(alias):
+    """``repro_torch.configs.<alias>.CONFIG`` is the reference module's
+    ``CONFIG`` field for field, and the port's ``ARCHS`` entry itself (the
+    two families the port does not run yet import all the same)."""
+    port = importlib.import_module(f"repro_torch.configs.{alias}").CONFIG
+    ref = importlib.import_module(f"repro.configs.{alias}").CONFIG
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port is torch_archs.ARCHS[ref.name]
 
 
 @pytest.mark.parametrize("arch", [a for a in torch_archs.ARCHS

@@ -71,9 +71,11 @@ def _cfg(cls, algo, n_replicas):
     return cls.from_bmax(B_MAX, algorithm=algo, n_replicas=R, mega_batch=MEGA)
 
 
-def port_trainer(algo, engine="scan", sparse=True, n_replicas=R0, device="cpu", momentum=0.0):
+def port_trainer(algo, engine="scan", sparse=True, n_replicas=R0, device="cpu", momentum=0.0,
+                 sgd=None, **trainer_kw):
     """(trainer, test batches) of the port; ``momentum`` > 0 keeps SGD
-    momentum buffers."""
+    momentum buffers, ``sgd`` (an ``SGDConfig``) replaces that config, and
+    ``trainer_kw`` go to the trainer (a speed model, ``keep_global_copies``)."""
     ds = make_xml_dataset(**DATA)
     train, test = train_test_split(ds, 0.2, seed=0)
     prov = SparseProvider.make(train, seed=0)
@@ -84,20 +86,22 @@ def port_trainer(algo, engine="scan", sparse=True, n_replicas=R0, device="cpu", 
         loss_fn=base.loss_fn, sparse_grad_fn=base.sparse_grad_fn, config=base.config,
     )
     tr = ElasticTrainer(model, prov, _cfg(ElasticConfig, algo, n_replicas),
-                        sgd=SGDConfig(momentum=momentum), base_lr=LR, seed=0, device=device,
-                        engine=engine, sparse_grads=sparse)
+                        sgd=sgd or SGDConfig(momentum=momentum), base_lr=LR, seed=0,
+                        device=device, engine=engine, sparse_grads=sparse, **trainer_kw)
     return tr, prov.test_batches(test, B_MAX)
 
 
-def ref_trainer(algo, engine="scan", sparse=True, n_replicas=R0, momentum=0.0):
-    """(trainer, test batches) of the reference."""
+def ref_trainer(algo, engine="scan", sparse=True, n_replicas=R0, momentum=0.0, sgd=None,
+                **trainer_kw):
+    """(trainer, test batches) of the reference; the arguments as
+    ``port_trainer``'s, ``sgd`` a reference ``SGDConfig``."""
     ds = jax_make_dataset(**DATA)
     train, test = jax_split(ds, 0.2, seed=0)
     prov = JProvider.make(train, seed=0)
     model = jref.make_model(jref.XMLMLPConfig(n_features=NF, n_classes=NC, hidden=H))
     tr = JTrainer(model, prov, _cfg(JElasticConfig, algo, n_replicas),
-                  sgd=JSGDConfig(momentum=momentum), base_lr=LR, seed=0, engine=engine,
-                  sparse_grads=sparse)
+                  sgd=sgd or JSGDConfig(momentum=momentum), base_lr=LR, seed=0, engine=engine,
+                  sparse_grads=sparse, **trainer_kw)
     return tr, prov.test_batches(test, B_MAX)
 
 
