@@ -157,13 +157,34 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    (``spmm_grad_w``) path, card against CPU within 1e-4. (e) Phase 5's
    8,192-sample dataset through ``write_libsvm`` and ``read_libsvm``: the
    arrays back equal (the values as their 6-digit text), seconds and bytes.
+13. sharded — the sharded placement (replicas split over a replica mesh, a
+   worker thread and a CUDA stream a shard, the merge's partials summed
+   over the shards): phase 5's width and data, Adaptive SGD, R = 4, the
+   pipeline on. (a) A one-shard mesh against vmap, 3 mega-batches: host
+   decisions identical, losses and model within 1e-6. (b) Four shards on
+   the one card (``("cuda:0",) * 4``) against vmap, 4 mega-batches: host
+   decisions identical, losses and model within 1e-5; spmm launched by
+   every shard each round and weighted_merge's no-momentum branch by every
+   shard each barrier (counted by thread); the warm mega-batch wall time,
+   the device's busy share (the union of the streams' kernel intervals)
+   and peak memory beside vmap's. (c) The same mesh under
+   ``MeasuredSpeedModel``, 6 mega-batches: each shard's CUDA-event window,
+   the factors, u and b, and ``observe_shards`` once a mega-batch; then at
+   phase 4's width the card's shard windows and clock readings replayed on
+   four CPU shards: host decisions and factors identical. (d) The resize
+   schedule 4 -> 2 -> 4 and a crash (R 3 on three shards), a checkpoint
+   written sharded after mega-batch 3 and restored under vmap: host
+   decisions and fleet log identical, the model within phase 10's limit of
+   its movement since the restore. (e) Dense gradients at phase 4's width
+   (``spmm_grad_w`` on every shard), card against four CPU shards.
 
 Then one JSON line with every kernel's numbers (weighted_merge's from
 phase 3's f32 w2 leaf, with phase 9's full-width barrier under
 ``lm_barrier``, per barrier, and its launches on every path; spmm's and
 spmm_grad_w's launches on theirs, under ``launches_by_path``; phase 11's and
 12's runs among them, with weighted_merge's no-momentum launches of phase
-12 (b, c) under ``no_momentum_launches_by_path``), and as
+12 (b, c) and 13 under ``no_momentum_launches_by_path``; phase 13's paths are
+``xml_sharded*``), and as
 the last line
 ``{"ok": true, "device": {...}}``. The data are synthetic, drawn from
 ``SEED``; the weights are random.
@@ -1365,6 +1386,377 @@ def measured_phase(reset_counts, read_counts, full_model, full_provider, test_ba
     return launches
 
 
+# phase 13's settings: phase 5's widths and data, Adaptive SGD, R = 4, b_max
+# 256, mega_batch 20, the overlap pipeline on. (a) a one-shard mesh on the
+# card against vmap, 3 mega-batches; (b) four shards on the one card
+# (``("cuda:0",) * 4``: four worker threads, four streams) against vmap, 4
+# mega-batches; (c) the same mesh under ``MeasuredSpeedModel``, 6
+# mega-batches, then at phase 4's width on the card and replayed on four CPU
+# shards from the card's shard windows and clock readings; (d) the resize
+# schedule 4 -> 2 -> 4 and a crash of replica 1, a checkpoint after
+# mega-batch 3 written sharded and restored under vmap; (e) dense gradients
+# at phase 4's width, card against CPU, 2 mega-batches.
+CARD4 = ("cuda:0",) * 4
+SHARDED_ONE_MB, SHARDED_MB, SHARDED_MEASURED_MB = 3, 4, 6   # (b) one past (a)
+SHARDED_SCHEDULE = {0: 4, 1: 2, 3: 4}
+SHARDED_FAULTS = "4:crash:1"
+SHARDED_ELASTIC_MB, SHARDED_RESTORE_AT = 6, 3
+# (a): the same ops as vmap but for the merge's momentum term (added to the
+# no-momentum kernel's sum in torch, where vmap fuses it) and index_add_'s
+# order (the card's atomics)
+SHARDED_ONE_TOL = 1e-6
+# (b), (d): the losses against vmap's. Four shards run each replica's rounds
+# as R = 1 programs, so the GEMMs (cuBLAS picks its kernels by shape) and the
+# gradient sums round otherwise than vmap's R = 4 ones, and the merge's
+# partials add in shard order. On an H100 the losses read 7.1e-8, but b1,
+# whose sums nearly cancel, read 1.1e-4 of its largest value (2.7e-8
+# absolute) after one mega-batch, and from the second one hidden unit's
+# ReLU took the other side for a sample: that unit's w1 column moved by up
+# to 2.2e-5 (1.4e-3 of the leaf's largest weight), past any per-element
+# limit a sound run keeps (the tests' 1e-5, the reference's multi-shard
+# 2e-3 / 1e-5). So the model is held as phase 10 holds a restored run, by
+# its distance over how far training moved it (``moved_err``), within
+# ``ELASTIC_MOVED_TOL``; vmap's own model one mega-batch behind must fail
+# that limit.
+SHARDED_TOL = 1e-5
+
+
+def device_busy_s(prof) -> tuple[float, float]:
+    """(union, sum) seconds of the device ops in a profiler trace: with
+    several streams, kernels overlap, so the busy time is the union of
+    their intervals (the sum where the trace gives no intervals)."""
+    from torch.autograd import DeviceType
+
+    total = sum(device_us(e) for e in prof.key_averages()) / 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return total, total
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e6, total
+
+
+def sharded_phase(reset_counts, read_counts, full_model, full_provider, test_batches,
+                  small_model, small_provider, small_test, card: str) -> dict:
+    """Phase 13: the sharded placement on the card (module doc). Returns
+    each run's kernel launches by path, weighted_merge's no-momentum
+    launches beside."""
+    import collections
+    import tempfile
+    import threading
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.core.fleet import FleetController, parse_fault_spec
+    from repro_torch.core.heterogeneity import MeasuredSpeedModel
+    from repro_torch.core.trainer import ElasticTrainer
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.weighted_merge.ops import merge_cuda
+
+    R = 4
+    launches = {}
+
+    def trainer(model, provider, mesh=None, where="cuda", b_max=256, mega_batch=20, lr=0.05,
+                **kw):
+        cfg = ElasticConfig.from_bmax(b_max, n_replicas=R, mega_batch=mega_batch,
+                                      placement="vmap" if mesh is None else "sharded")
+        return ElasticTrainer(model(), provider(), cfg, base_lr=lr, seed=SEED,
+                              device=where if mesh is None else None, mesh=mesh, **kw)
+
+    # launches by thread (each shard's worker, and the main thread's
+    # evaluation), counted where every wrapper counts its own
+    by_thread = collections.Counter()
+    lock = threading.Lock()
+    count_launch = _build.count_launch
+
+    def per_thread(wrapper, **counters):
+        count_launch(wrapper, **counters)
+        with lock:
+            by_thread[(wrapper.__name__, threading.current_thread().name)] += 1
+
+    _build.count_launch = per_thread
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(read_counts(), weighted_merge_no_momentum=merge_cuda.no_momentum_launches)
+
+    def reset():
+        reset_counts()
+        merge_cuda.no_momentum_launches = 0
+        by_thread.clear()
+
+    def model_of(state):
+        return {k: v.detach().cpu().clone() for k, v in state.global_model.items()}
+
+    def timed_run(label, tr, n_mb, profile_one=False, **kw):
+        """``run`` with evaluation; the peak memory, warm mega-batch walls
+        and, optionally, one more warm mega-batch under the profiler."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        state, mlog = tr.run(n_mb, test_batches=test_batches, **kw)
+        out = dict(records=mlog.records, launches=counts(), by_thread=dict(by_thread),
+                   peak=torch.cuda.max_memory_allocated(), model=model_of(state),
+                   walls=[b["wall_clock"] - a["wall_clock"]
+                          for a, b in zip(mlog.records, mlog.records[1:])])
+        if profile_one:
+            state, _ = tr.run_megabatch(state, prefetch=True)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, info = tr.run_megabatch(state, prefetch=True)
+                torch.cuda.synchronize()
+                out["prof_wall"] = time.perf_counter() - t0
+            out["busy"], out["busy_sum"] = device_busy_s(prof)
+            out["prof_rounds"] = info["n_rounds"]
+            tr.invalidate_prefetch()
+        for rec in mlog.records:
+            print(f"sharded {label} mb={rec['megabatch']} R={rec['n_replicas']} u={rec['u']} "
+                  f"b={rec['b']} loss={rec['train_loss']:.6f} test_loss={rec['test_loss']:.6f}")
+        tr.close()
+        return out
+
+    def expect(label, got, want):
+        print(f"sharded {label} launches: {got} (expected {want})")
+        if any(got[k] != v for k, v in want.items()):
+            raise RuntimeError(f"sharded {label}: launch counts {got} != expected {want}")
+
+    leaves = 4   # the XML model's w1, b1, w2, b2
+    n_eval = len(test_batches)
+
+    # ---- (a) a one-shard mesh against vmap ----
+    vmap = timed_run("(a) vmap", trainer(full_model, full_provider), SHARDED_ONE_MB)
+    one = timed_run("(a) one shard", trainer(full_model, full_provider, mesh=CARD4[:1]),
+                    SHARDED_ONE_MB)
+    check_host_decisions("sharded (a) one shard vs vmap", one["records"], vmap["records"])
+    l_err, m_err = loss_err(one["records"], vmap["records"]), model_err(one["model"],
+                                                                      vmap["model"])
+    n_rounds = sum(r["n_rounds"] for r in one["records"])
+    launches["(a)"] = one["launches"]
+    expect("(a)", one["launches"], {
+        "spmm": n_rounds + SHARDED_ONE_MB * n_eval,
+        "weighted_merge": leaves * SHARDED_ONE_MB,
+        "weighted_merge_no_momentum": leaves * SHARDED_ONE_MB})
+    print(f"sharded (a) one shard vs vmap: host decisions identical over {SHARDED_ONE_MB} "
+          f"mega-batches; largest loss rel err {l_err:.3g}, global model err {m_err:.3g} "
+          f"(tol {SHARDED_ONE_TOL})")
+    if max(l_err, m_err) > SHARDED_ONE_TOL:
+        raise RuntimeError("sharded (a): the one-shard run left the vmap one")
+
+    # ---- (b) four shards on the card against vmap ----
+    runs = {}
+    for label, mesh in (("vmap", None), ("four shards", CARD4)):
+        runs[label] = timed_run(f"(b) {label}", trainer(full_model, full_provider, mesh=mesh),
+                                SHARDED_MB, profile_one=True)
+    v, s4 = runs["vmap"], runs["four shards"]
+    check_host_decisions("sharded (b) four shards vs vmap", s4["records"], v["records"])
+    l_err, m_err = loss_err(s4["records"], v["records"]), model_err(s4["model"], v["model"])
+    init = {k: t.cpu() for k, t in full_model().init(torch.Generator()).items()}
+    moved = moved_err(s4["model"], v["model"], init)
+    # (a)'s vmap run: the same trajectory, one mega-batch shorter
+    behind = moved_err(vmap["model"], v["model"], init)
+    leaf_err = {k: float((s4["model"][k] - v["model"][k]).abs().max()) for k in v["model"]}
+    n_rounds = sum(r["n_rounds"] for r in s4["records"])
+    launches["(b)"] = s4["launches"]
+    expect("(b)", s4["launches"], {
+        "spmm": 4 * n_rounds + SHARDED_MB * n_eval,
+        "weighted_merge": 4 * leaves * SHARDED_MB,
+        "weighted_merge_no_momentum": 4 * leaves * SHARDED_MB, "spmm_grad_w": 0})
+    per_shard = {f"shard-{s}-of-4": (s4["by_thread"].get(("spmm_cuda", f"shard-{s}-of-4"), 0),
+                                     s4["by_thread"].get(("merge_cuda", f"shard-{s}-of-4"), 0))
+                 for s in range(4)}
+    print(f"sharded (b) launches by shard (spmm, weighted_merge): {per_shard}; main thread "
+          f"(evaluation) spmm {s4['by_thread'].get(('spmm_cuda', 'MainThread'), 0)}")
+    if any(p != (n_rounds, leaves * SHARDED_MB) for p in per_shard.values()):
+        raise RuntimeError(f"sharded (b): a shard missed its launches: {per_shard}")
+    print(f"sharded (b) four shards vs vmap: host decisions identical over {SHARDED_MB} "
+          f"mega-batches; largest loss rel err {l_err:.3g} (tol {SHARDED_TOL}); global "
+          f"model {moved:.3g} of its movement from the initial weights (tol "
+          f"{ELASTIC_MOVED_TOL}; vmap's own model one mega-batch behind reads {behind:.3g}), "
+          f"max err {m_err:.3g}, max abs err by leaf {leaf_err}")
+    if l_err > SHARDED_TOL or moved > ELASTIC_MOVED_TOL or behind <= ELASTIC_MOVED_TOL:
+        raise RuntimeError("sharded (b): the four-shard run left the vmap one")
+    print(f"sharded measured on: {card}")
+    for label, run in runs.items():
+        walls = run["walls"]
+        print(f"sharded (b) {label}: warm mega-batch {sorted(walls)[len(walls) // 2]:.4f} s "
+              f"wall (median of mega-batches 2-{SHARDED_MB}, evaluation included: "
+              f"{np.round(walls, 4).tolist()}); profiled mega-batch ({run['prof_rounds']} "
+              f"rounds) {run['prof_wall']:.4f} s, device busy {run['busy']:.4f} s "
+              f"({run['busy'] / run['prof_wall']:.1%}; the ops' device time summed "
+              f"{run['busy_sum']:.4f} s); peak device memory {run['peak'] / 1e9:.2f} GB")
+
+    # ---- (c) the measured speed model: one window a shard ----
+    tr = trainer(full_model, full_provider, mesh=CARD4, speed=MeasuredSpeedModel(R))
+    windows, calls, rows = [], [], []
+    take = tr._shard_timer.take
+    tr._shard_timer.take = lambda: windows.append(take()) or windows[-1]
+    for name in ("observe_shards", "observe_plan"):
+        fn = getattr(tr.speed, name)
+        setattr(tr.speed, name, lambda *a, _fn=fn, _name=name, **kw: (calls.append(_name),
+                                                                      _fn(*a, **kw))[1])
+
+    class Probe:
+        def maybe_save(self, trainer, state):
+            rows.append((np.array(trainer.speed.factors), np.array(trainer.speed.n_obs)))
+
+        def wait(self):
+            pass
+
+    measured = timed_run("(c) measured", tr, SHARDED_MEASURED_MB, checkpoint=Probe())
+    launches["(c) measured"] = measured["launches"]
+    for rec, w, (f, n) in zip(measured["records"], windows, rows):
+        print(f"sharded (c) mb={rec['megabatch']} shard windows (CUDA events) "
+              f"{np.round(w, 4).tolist() if w is not None else None} s, factors "
+              f"{np.round(f, 4).tolist()}, n_obs {n.tolist()}, u={rec['u']} b={rec['b']}")
+    counted = SHARDED_MEASURED_MB - tr.speed.warmup_windows
+    if (calls != ["observe_shards"] * SHARDED_MEASURED_MB
+            or any(w is None or len(w) != 4 or not (w > 0).all() for w in windows)
+            or tr.speed.n_windows != SHARDED_MEASURED_MB
+            or not (tr.speed.n_obs == counted).all()):
+        raise RuntimeError(f"sharded (c): observe_shards calls {calls}, windows {windows}, "
+                           f"n_obs {tr.speed.n_obs}: not one window a shard per mega-batch")
+    print(f"sharded (c): observe_shards once a mega-batch ({SHARDED_MEASURED_MB}), the first "
+          f"window discarded (warmup), {counted} counted windows for every replica")
+    n_rounds = sum(r["n_rounds"] for r in measured["records"])
+    expect("(c) measured", measured["launches"], {
+        "spmm": 4 * n_rounds + SHARDED_MEASURED_MB * n_eval,
+        "weighted_merge": 4 * leaves * SHARDED_MEASURED_MB})
+
+    # phase 4's width: the card's windows and clock readings replayed on
+    # four CPU shards
+    timer = RecordingTimer()
+    tr = ElasticTrainer(small_model(), small_provider(), ElasticConfig.from_bmax(
+        32, n_replicas=R, mega_batch=10, placement="sharded"), base_lr=0.5, seed=SEED,
+        mesh=CARD4, speed=MeasuredSpeedModel(R, timer=timer))
+    card_windows = []
+    take = tr._shard_timer.take
+    tr._shard_timer.take = lambda: card_windows.append(take()) or card_windows[-1]
+    probe = SpeedProbe()
+    reset()
+    state, mlog = tr.run(SHARDED_MEASURED_MB, test_batches=small_test, checkpoint=probe)
+    launches["(c) replay"] = counts()
+    card_run = (mlog.records, model_of(state), probe.rows)
+    tr.close()
+    replay = ScriptedTimer(timer.readings)
+    tr_cpu = ElasticTrainer(small_model(), small_provider(), ElasticConfig.from_bmax(
+        32, n_replicas=R, mega_batch=10, placement="sharded"), base_lr=0.5, seed=SEED,
+        mesh=("cpu",) * 4, speed=MeasuredSpeedModel(R, timer=replay))
+    scripted = iter(card_windows)
+    tr_cpu._shard_timer.take = lambda: next(scripted)
+    probe_cpu = SpeedProbe()
+    state_cpu, mlog_cpu = tr_cpu.run(SHARDED_MEASURED_MB, test_batches=small_test,
+                                     checkpoint=probe_cpu)
+    tr_cpu.close()
+    check_host_decisions("sharded (c) card vs CPU replay", card_run[0], mlog_cpu.records)
+    for mb, ((f, n), (f_cpu, n_cpu)) in enumerate(zip(card_run[2], probe_cpu.rows), 1):
+        if not (np.array_equal(f, f_cpu) and np.array_equal(n, n_cpu)):
+            raise RuntimeError(f"sharded (c): factors differ at mega-batch {mb}: {f} vs {f_cpu}")
+    l_err = loss_err(card_run[0], mlog_cpu.records)
+    m_err = model_err(card_run[1], state_cpu.global_model)
+    for rec, w, (f, n) in zip(card_run[0], card_windows, card_run[2]):
+        print(f"sharded (c) small width mb={rec['megabatch']} windows "
+              f"{np.round(w, 5).tolist() if w is not None else None} s factors "
+              f"{np.round(f, 4).tolist()} u={rec['u']} b={rec['b']}")
+    print(f"sharded (c) small width, card vs four CPU shards replaying its shard windows and "
+          f"{len(timer.readings)} clock readings: host decisions and factors identical over "
+          f"{len(card_run[0])} mega-batches; loss rel err {l_err:.3g}, global model err "
+          f"{m_err:.3g} (tol {MEASURED_TOL})")
+    if max(l_err, m_err) > MEASURED_TOL or replay.calls != len(timer.readings):
+        raise RuntimeError("sharded (c): the card and its CPU replay disagree")
+
+    # ---- (d) resizes, a crash, a checkpoint restored under vmap ----
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = trainer(full_model, full_provider, mesh=CARD4)
+        widths, merges = [], []
+        step, merge = tr.run_megabatch, tr._merge
+
+        def run_megabatch(state, prefetch=None):
+            widths.append(len(state.replicas.blocks))
+            return step(state, prefetch)
+
+        def counted_merge(*args, **kw):
+            merges.append(len(tr.mesh))
+            return merge(*args, **kw)
+
+        tr.run_megabatch, tr._merge = run_megabatch, counted_merge
+        ctl = FleetController(injector=parse_fault_spec(SHARDED_FAULTS), max_replicas=2 * R)
+        mgr = store.CheckpointManager(tmp, every=SHARDED_RESTORE_AT, retain=2)
+        elastic = timed_run("(d) sharded", tr, SHARDED_ELASTIC_MB,
+                            resize_schedule=SHARDED_SCHEDULE, fleet=ctl, checkpoint=mgr)
+        launches["(d)"] = elastic["launches"]
+        n_rounds = sum(r["n_rounds"] * w for r, w in zip(elastic["records"], widths))
+        expect("(d)", elastic["launches"], {
+            "spmm": n_rounds + SHARDED_ELASTIC_MB * n_eval,
+            "weighted_merge": leaves * sum(merges),
+            "weighted_merge_no_momentum": leaves * sum(merges)})
+        print(f"sharded (d) shards a mega-batch {widths} (R "
+              f"{[r['n_replicas'] for r in elastic['records']]}), merges by shard count "
+              f"{merges}; fleet log {ctl.events}")
+        tr_v = trainer(full_model, full_provider)
+        base = {}
+        restore = tr_v.restore_checkpoint
+
+        def captured(path):
+            state = restore(path)
+            base.update(model_of(state))
+            return state
+
+        tr_v.restore_checkpoint = captured
+        ctl_v = FleetController(injector=parse_fault_spec(SHARDED_FAULTS), max_replicas=2 * R)
+        restored = timed_run("(d) restored under vmap", tr_v, SHARDED_ELASTIC_MB,
+                             resize_schedule=SHARDED_SCHEDULE, fleet=ctl_v,
+                             restore_from=mgr.step_path(SHARDED_RESTORE_AT))
+    check_host_decisions("sharded (d) restored under vmap", restored["records"],
+                         elastic["records"][SHARDED_RESTORE_AT:])
+    if ctl_v.events != [e for e in ctl.events if e["mb"] >= SHARDED_RESTORE_AT]:
+        raise RuntimeError(f"sharded (d): fleet logs differ: {ctl_v.events} vs {ctl.events}")
+    l_err = loss_err(restored["records"], elastic["records"][SHARDED_RESTORE_AT:])
+    moved = moved_err(restored["model"], elastic["model"], base)
+    print(f"sharded (d) restored under vmap after mega-batch {SHARDED_RESTORE_AT}: host "
+          f"decisions and fleet log identical; loss rel err {l_err:.3g} (tol {SHARDED_TOL}), "
+          f"global model {moved:.3g} of its movement since the restore (tol "
+          f"{ELASTIC_MOVED_TOL}), max err {model_err(restored['model'], elastic['model']):.3g}")
+    if l_err > SHARDED_TOL or moved > ELASTIC_MOVED_TOL:
+        raise RuntimeError("sharded (d): the restored vmap run left the sharded one")
+
+    # ---- (e) dense gradients: spmm_grad_w on every shard, card vs CPU ----
+    runs = []
+    for mesh in (CARD4, ("cpu",) * 4):
+        tr = ElasticTrainer(small_model(), small_provider(), ElasticConfig.from_bmax(
+            32, n_replicas=R, mega_batch=10, placement="sharded"), base_lr=0.5, seed=SEED,
+            mesh=mesh, sparse_grads=False)
+        reset()
+        state, mlog = tr.run(2, test_batches=small_test)
+        if mesh == CARD4:
+            launches["(e)"] = counts()
+            by = dict(by_thread)
+        runs.append((mlog.records, model_of(state)))
+        tr.close()
+    (recs, model), (cpu_recs, cpu_model) = runs
+    n_rounds = sum(r["n_rounds"] for r in recs)
+    expect("(e)", launches["(e)"], {
+        "spmm": 4 * n_rounds + 2 * len(small_test), "spmm_grad_w": 4 * n_rounds,
+        "sort_rows": 4 * n_rounds, "weighted_merge": 4 * leaves * 2})
+    check_host_decisions("sharded (e) dense card vs CPU", recs, cpu_recs)
+    l_err, m_err = loss_err(recs, cpu_recs), model_err(model, cpu_model)
+    print(f"sharded (e) dense gradients, four shards card vs CPU: host decisions identical; "
+          f"loss rel err {l_err:.3g}, global model err {m_err:.3g} (tol {MEASURED_TOL}); "
+          f"spmm launches by thread {by}")
+    if max(l_err, m_err) > MEASURED_TOL:
+        raise RuntimeError("sharded (e): card and CPU runs disagree")
+
+    _build.count_launch = count_launch
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2285,6 +2677,23 @@ def main() -> int:
         small_test=SparseProvider.make(strain, seed=SEED).test_batches(stest, 32),
         dataset=ds, card=smi,
     )
+
+    # ---- 13. the sharded placement: replicas split over a replica mesh ------
+    sharded = sharded_phase(
+        reset_counts, read_counts,
+        full_model=lambda: model_from(p_full, cfg_full),
+        full_provider=lambda: SparseProvider.make(train, seed=SEED),
+        test_batches=test_batches,
+        small_model=lambda: model_from(p0, XMLMLPConfig(**small)),
+        small_provider=lambda: SparseProvider.make(strain, seed=SEED),
+        small_test=SparseProvider.make(strain, seed=SEED).test_batches(stest, 32),
+        card=smi,
+    )
+    sharded_paths = {
+        "(a)": "xml_sharded_one", "(b)": "xml_sharded", "(c) measured": "xml_sharded_measured",
+        "(c) replay": "xml_sharded_replay", "(d)": "xml_sharded_elastic",
+        "(e)": "xml_sharded_dense"}
+
     measured_paths = {
         "replay": "xml_measured_replay", "(b) overlap": "xml_measured_on",
         "(b) sequential": "xml_measured_off", "(c) lean": "xml_measured_lean",
@@ -2337,11 +2746,22 @@ def main() -> int:
     results["weighted_merge"]["no_momentum_launches_by_path"] = {
         measured_paths[label]: measured[label]["weighted_merge_no_momentum"]
         for label in ("(b) overlap", "(b) sequential", "(c) lean")}
+    # phase 13's runs: every shard launches spmm each round and merges its
+    # own replicas through weighted_merge's no-momentum branch
+    for label, path in sharded_paths.items():
+        counts = sharded[label]
+        for name in ("weighted_merge", "spmm"):
+            results[name]["launches_by_path"][path] = counts[name]
+        if counts["spmm_grad_w"]:
+            results["spmm_grad_w"]["launches_by_path"][path] = counts["spmm_grad_w"]
+        results["weighted_merge"]["no_momentum_launches_by_path"][path] = counts[
+            "weighted_merge_no_momentum"]
     for name in ("weighted_merge", "spmm", "spmm_grad_w"):
         launches[name] = sum(results[name]["launches_by_path"].values())
     results["spmm_grad_w"]["sort"]["launches"] = (
         dense_launches["sort_rows"] + elastic["dense"]["sort_rows"]
-        + sum(counts["sort_rows"] for counts in measured.values()))
+        + sum(counts["sort_rows"] for counts in measured.values())
+        + sum(counts["sort_rows"] for counts in sharded.values()))
     launches.update(lm_launches)
     kernels = []
     for name, r in results.items():

@@ -136,9 +136,11 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ElasticConfig:
     algorithm: str = "adaptive"  # any key in the core/algorithms registry
-    placement: str = "vmap"      # replica execution placement: only 'vmap'
-                                 # (all replicas on one device, vectorized
-                                 # over the leading R dim) is ported so far
+    placement: str = "vmap"      # replica execution placement: 'vmap' (all
+                                 # replicas on one device, vectorized over
+                                 # the leading R dim) or 'sharded' (R split
+                                 # over a replica mesh, a thread and a
+                                 # stream a shard; core/trainer.py)
     n_replicas: int = 4
     mega_batch: int = 100        # batches between merges (paper default 100)
     b_max: int = 256             # max per-replica batch size (slots)

@@ -98,6 +98,7 @@ def normalized_merge(
     global_model: Optional[dict],
     prev_global: Optional[dict],
     gamma: float,
+    axis: Optional[str] = None,
 ) -> dict:
     """Lines 11-12: w' = sum_i alpha_i w_i + gamma (w̄ - w̄_p).
 
@@ -108,12 +109,28 @@ def normalized_merge(
     Every leaf goes through the weighted-merge op (``kernels/weighted_merge``),
     momentum term fused: the CUDA kernel on the card, its plain version on
     the CPU, both accumulating in f32.
+
+    ``axis`` — set in a shard's worker under the sharded placement, where
+    ``replicas`` and ``alphas`` are the shard's own: the shard's weighted
+    sum (the op's no-momentum branch) is a partial of line 11, summed over
+    the shards in shard order; the momentum term is then added in f32 to
+    the complete sum and the result cast once, as the reference's psum path
+    does. Every shard returns the new global on its own device.
     """
     device = next(iter(replicas.values())).device
     alphas = torch.as_tensor(np.asarray(alphas), dtype=torch.float32, device=device)
-    if global_model is None or prev_global is None or gamma == 0.0:
-        return merge_pytree(replicas, alphas)
-    return merge_pytree(replicas, alphas, global_model, prev_global, gamma)
+    momentum = not (global_model is None or prev_global is None or gamma == 0.0)
+    if axis is None:
+        if not momentum:
+            return merge_pytree(replicas, alphas)
+        return merge_pytree(replicas, alphas, global_model, prev_global, gamma)
+    merged = tu.tree_map(lambda l: tu.replica_all_sum(l, axis), merge_pytree(replicas, alphas))
+    if not momentum:
+        return merged
+    return tu.tree_map(
+        lambda m, g, gp: (m.float() + gamma * (g.float() - gp.float())).to(m.dtype),
+        merged, global_model, prev_global,
+    )
 
 
 def replica_regularization(replicas: dict) -> np.ndarray:

@@ -15,7 +15,8 @@ inside every round):
   * ``plan(scheduler, state, mega_samples, fetch_fn)`` → ``MegaBatchPlan``
   * ``round_transforms(cfg)`` → ``RoundTransforms``
   * ``merge(trainer, state, plan, replicas)`` → ``MergeOutcome``; the
-    trainer exposes ``merge_models`` and ``replica_norms``
+    trainer exposes ``merge_models``, ``replica_norms`` and
+    ``apply_replicas`` (a function of the replicas run under the placement)
   * ``adapt(state, plan, cfg)`` → ``(new_b, new_lr)``
   * ``merges_per_megabatch(plan)`` — merge costs charged to the clock
   * ``resolve_n_replicas(requested)`` — clamp the replica count
@@ -29,15 +30,20 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from repro_torch.sharding.rules import REPLICA_AXIS
+
 
 def replica_axis_name(cfg) -> Optional[str]:
     """The collective axis a per-round hook must reduce over, or None.
 
-    Only the vmap placement is ported, where every replica lives in one
-    program and reductions over the leading R dim are already global, so
-    this is None; the sharded placement will name its process-group axis.
+    Under ``cfg.placement == 'sharded'`` the round transforms run in each
+    shard's worker thread on that shard's block of replicas, so
+    cross-replica math (a gradient mean, CROSSBOW's center) folds the other
+    shards in over this axis (``tu.replica_all_sum``,
+    ``tu.tree_replica_mean_keepdims`` take it). Under the vmap placement
+    every replica is local and this is None: the helpers reduce as before.
     """
-    return None
+    return REPLICA_AXIS if getattr(cfg, "placement", "vmap") == "sharded" else None
 
 
 # --------------------------------------------------------------------------
@@ -109,6 +115,12 @@ class Algorithm:
     #:                parameters; only joiners clone the merged global
     #:                (CROSSBOW's independent learners).
     resize_policy: str = "merge"
+
+    #: True when the round transforms reduce across replicas inside every
+    #: round (sync's gradient mean, CROSSBOW's center): a placement that
+    #: exchanges only at the barrier (the reference's multi-process host
+    #: span) cannot run them.
+    round_collectives: bool = False
 
     # ---- state ----
     def init_state_extras(self, cfg, params, keep_global_copies: bool) -> StateExtras:

@@ -21,19 +21,22 @@ from repro_torch.core import adaptive_sgd as asgd
 from repro_torch.optim.row_sparse import densify_tree
 from repro_torch.utils import tree as tu
 
-from .base import Algorithm, MergeOutcome, RoundTransforms, register
+from .base import Algorithm, MergeOutcome, RoundTransforms, register, replica_axis_name
 
 
-def masked_mean_grads(grads, update_mask):
+def masked_mean_grads(grads, update_mask, axis=None):
     """Mean over live replicas, broadcast to all (masked rows get it too,
-    but their SGD update is masked off, so they stay frozen)."""
+    but their SGD update is masked off, so they stay frozen). Live replicas
+    count across the whole mesh: with ``axis`` the weighted sum and the live
+    count are summed over the shards before the divide."""
     grads = densify_tree(grads)
     w = update_mask.float()
-    denom = w.sum().clamp_min(1.0)
+    denom = tu.replica_all_sum(w.sum(), axis).clamp_min(1.0)
 
     def one(g):
         wg = w.view((-1,) + (1,) * (g.ndim - 1)) * g.float()
-        return (wg.sum(dim=0, keepdim=True) / denom).expand_as(g).to(g.dtype)
+        mean = tu.replica_all_sum(wg.sum(dim=0, keepdim=True), axis) / denom
+        return mean.expand_as(g).to(g.dtype)
 
     return tu.tree_map(one, grads)
 
@@ -42,11 +45,15 @@ def masked_mean_grads(grads, update_mask):
 class DelayedSyncAdaptiveBatch(Algorithm):
     # state init: the base default (b = b_max everywhere, no global copies)
 
+    #: the masked gradient mean reduces across replicas every round
+    round_collectives = True
+
     def plan(self, scheduler, state, mega_samples, fetch_fn):
         return self._plan_dynamic(scheduler, state, mega_samples, fetch_fn)
 
     def round_transforms(self, cfg):
-        return RoundTransforms(grad_transform=masked_mean_grads)
+        axis = replica_axis_name(cfg)
+        return RoundTransforms(grad_transform=lambda g, mask: masked_mean_grads(g, mask, axis))
 
     def merge(self, trainer, state, plan, replicas):
         alphas = asgd.merge_weights(plan.u, state.b)

@@ -12,23 +12,35 @@ import numpy as np
 from repro_torch.optim.row_sparse import densify_tree
 from repro_torch.utils import tree as tu
 
-from .base import Algorithm, MergeOutcome, RoundTransforms, StateExtras, register
+from .base import (
+    Algorithm,
+    MergeOutcome,
+    RoundTransforms,
+    StateExtras,
+    register,
+    replica_axis_name,
+)
 
 
-def mean_grads(grads, update_mask):
+def mean_grads(grads, update_mask, axis=None):
     """All replicas share the plain cross-replica mean gradient.
 
     Replicas see different batches, so row-sparse grads have no common row
     set to average over — densify before the mean. (Static plans: every
-    replica is live each round, so the mask does not enter.)
+    replica is live each round, so the mask does not enter.) The mean spans
+    the whole population: under the sharded placement ``axis`` folds the
+    other shards in.
     """
     grads = densify_tree(grads)
-    means = tu.tree_replica_mean_keepdims(grads)
+    means = tu.tree_replica_mean_keepdims(grads, axis)
     return tu.tree_map(lambda g, m: m.expand_as(g).to(g.dtype), grads, means)
 
 
 @register("sync")
 class GradientAggregation(Algorithm):
+    #: the gradient mean reduces across replicas every round
+    round_collectives = True
+
     def init_state_extras(self, cfg, params, keep_global_copies):
         b0 = max(cfg.b_min, cfg.b_max // cfg.n_replicas)
         return StateExtras(b=np.full(cfg.n_replicas, float(b0)))
@@ -40,7 +52,8 @@ class GradientAggregation(Algorithm):
         return new_b, base_lr * new_b / cfg.b_max
 
     def round_transforms(self, cfg):
-        return RoundTransforms(grad_transform=mean_grads)
+        axis = replica_axis_name(cfg)  # None under vmap: the helpers reduce as is
+        return RoundTransforms(grad_transform=lambda g, mask: mean_grads(g, mask, axis))
 
     def merge(self, trainer, state, plan, replicas):
         R = trainer.cfg.n_replicas

@@ -38,8 +38,6 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
-import torch
-
 from repro_torch.core.heterogeneity import SpeedModel
 from repro_torch.utils import tree as tu
 from repro_torch.utils.logging import log
@@ -275,12 +273,9 @@ class FleetController:
         # 'nan': poison the slot's parameters (a new tensor a leaf: the
         # state may be held elsewhere); the trainer's non-finite guard
         # excludes it from the merge and heals it
-        def poison(l):
-            index = torch.tensor([slot], device=l.device)
-            return l.index_fill(0, index, float("nan"))
-
         self._log(mb, "nan", slot)
-        return dataclasses.replace(state, replicas=tu.tree_map(poison, state.replicas))
+        return dataclasses.replace(
+            state, replicas=tu.tree_fill_rows(state.replicas, [slot], float("nan")))
 
     def _evict(self, trainer, state, mb, slot, graceful, reason, rejoin_in=None):
         level = 0

@@ -1,10 +1,13 @@
 """Device heterogeneity model + virtual clock.
 
 Copied from ``repro/core/heterogeneity.py`` (``SpeedModel``,
-``MeasuredSpeedModel``, ``CostModel``, ``VirtualClock``, with their
-membership and checkpoint methods); the simulated speeds draw the same
-numpy random stream, and the measured model, fed the same timer readings,
-holds the same EMAs and factors.
+``MeasuredSpeedModel``, ``ShardWindowTimer``, ``CostModel``,
+``VirtualClock``, with their membership and checkpoint methods); the
+simulated speeds draw the same numpy random stream, and the measured
+model, fed the same timer readings or shard windows, holds the same EMAs
+and factors. ``ShardWindowTimer`` marks a shard's window with CUDA events
+on the shard's stream where the reference reads the host clock in a
+callback.
 
 The paper identifies two sources of heterogeneity (§1):
   1. intrinsic device variance — identical GPUs differ by up to 32% on the
@@ -21,9 +24,10 @@ algorithm only ever sees *relative speeds*, exactly as in the paper.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -346,6 +350,80 @@ class MeasuredSpeedModel:
         self.n_windows = int(sd["meta"]["n_windows"])
         self.skip_windows = int(sd["meta"]["skip_windows"])
         self._factors = None
+
+
+class ShardWindowTimer:
+    """Per-shard windows of one mega-batch: the signal
+    ``MeasuredSpeedModel.observe_shards`` takes.
+
+    Under the sharded placement each shard's worker calls
+    :meth:`mark_start` before it issues its rounds and :meth:`mark_end`
+    after the last of them (before the metric sums are reduced over the
+    shards, which would wait for the slowest); the difference is that
+    shard's own window. On the card (a stream given and no ``timer``
+    injected) a marker is a CUDA event recorded on the shard's stream, and
+    :meth:`take` waits for the end events and returns their device
+    seconds. Otherwise a marker reads ``timer`` (``time.perf_counter`` when
+    none is given), as the reference's callbacks read the host clock.
+
+    The shards mark from their own threads, so the markers and ``take``'s
+    swap are lock-guarded, and the first start marker of a shard opens its
+    window. ``take`` returns ``None`` whenever the set is incomplete or a
+    window is not positive (the legacy engine marks nothing); the trainer
+    then falls back to the whole window.
+    """
+
+    def __init__(self, timer: Optional[Callable[[], float]] = None):
+        self.timer = timer
+        self._lock = threading.Lock()
+        self._n = 0
+        self._t0: dict = {}
+        self._t1: dict = {}
+
+    def reset(self, n_shards: int) -> None:
+        """Open a measurement window expecting markers from n_shards."""
+        with self._lock:
+            self._n = int(n_shards)
+            self._t0 = {}
+            self._t1 = {}
+
+    def _mark(self, stream):
+        if stream is not None and self.timer is None:
+            import torch
+
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(stream)
+            return event
+        return (self.timer or time.perf_counter)()
+
+    def mark_start(self, shard, stream=None) -> None:
+        s = int(shard)
+        with self._lock:
+            if s not in self._t0:   # the first marker opens the shard's window
+                self._t0[s] = self._mark(stream)
+
+    def mark_end(self, shard, stream=None) -> None:
+        s = int(shard)
+        with self._lock:
+            self._t1[s] = self._mark(stream)    # the last marker closes it
+
+    def take(self) -> np.ndarray | None:
+        """(n_shards,) window seconds, or None if any marker is missing."""
+        with self._lock:
+            n, t0, t1 = self._n, self._t0, self._t1
+            self._n, self._t0, self._t1 = 0, {}, {}
+        if n == 0 or set(t0) != set(range(n)) or set(t1) != set(range(n)):
+            return None
+        w = []
+        for s in range(n):
+            start, end = t0[s], t1[s]
+            if hasattr(start, "elapsed_time"):   # CUDA events
+                end.synchronize()
+                w.append(start.elapsed_time(end) / 1e3)
+            else:
+                w.append(end - start)
+        w = np.array(w, np.float64)
+        return w if np.all(w > 0) else None
 
 
 @dataclass

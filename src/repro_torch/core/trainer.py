@@ -1,11 +1,34 @@
 """ElasticTrainer: the mega-batch training engine, in PyTorch.
 
-Port of ``repro/core/trainer.py`` for the vmap placement and the
-sequential mega-batch path. Everything that distinguishes one algorithm
-from another lives in the strategy the ``core/algorithms`` registry
-resolves from ``cfg.algorithm``; the engine drives it through its hooks:
+Port of ``repro/core/trainer.py`` on one process. Everything that
+distinguishes one algorithm from another lives in the strategy the
+``core/algorithms`` registry resolves from ``cfg.algorithm``; the engine
+drives it through its hooks:
 
   init_state_extras → plan → round_transforms → merge → adapt
+
+Placements, as in the reference (``cfg.placement``):
+
+  * ``vmap`` (default) — every replica on the trainer's device, each round
+    one batched program over the leading R dim.
+  * ``sharded`` — the replica dim split over a replica mesh
+    (``sharding.rules``: a tuple of devices, ``mesh=`` or one drawn from a
+    ``ReplicaMeshPool``): shard s holds a contiguous block of the replica
+    and momentum leaves (a ``utils.tree.ShardedTree``) on its device and
+    runs the same round, mega-batch and merge code as ``vmap`` on that
+    block, in a worker thread of its own with a CUDA stream of its own
+    (``sharding.executor.ShardExecutor``, one per shard count, cached).
+    Where the reference has collectives the shards meet at a rendezvous
+    over the replica axis, summing in shard order: the metric sums, the
+    live gate of a round, the algorithms' in-round means
+    (``replica_axis_name``), the merge's partials (``normalized_merge``'s
+    axis branch, the momentum term added to the complete sum); norms and
+    finite rows are gathered per shard. Globals live once, on the mesh's
+    first device (copied once per other device where a shard needs them).
+    Staging packs each shard's column block of the plan into the staging
+    slot and uploads it on the shard's stream; a measured speed model gets
+    one window per shard (``ShardWindowTimer``). With one shard the
+    trajectory is the vmap one's, bitwise on the CPU.
 
 Engines, as in the reference (``ENGINES``):
 
@@ -42,8 +65,10 @@ non-finite guard heals poisoned replicas before the barrier, and
 reference's crash-consistent checkpoint format (``checkpoint.store``).
 ``run`` drives them from a resize schedule, a ``core.fleet``
 ``FleetController`` and a ``CheckpointManager``. Every merge among them
-goes through the ``weighted_merge`` kernel on the card. The reference's
-host-span (multi-process) branches of these methods are not ported.
+goes through the ``weighted_merge`` kernel on the card; under the sharded
+placement a resize or a restore redraws the mesh from the pool and moves
+the state onto it. The reference's host-span (multi-process) branches of
+these methods are not ported.
 
 The overlapped mega-batch pipeline (``overlap=True``, the default; the
 scan engine only, as in the reference): ``run_megabatch`` issues mega-batch
@@ -68,19 +93,22 @@ paper's §3.1 feedback loop: each mega-batch's window, from ``begin`` just
 before its rounds are issued (the sequential path: before its pack and
 upload) to ``elapsed`` just after their metrics are collected, is
 attributed per replica by its scheduled share
-(``_observe_window``), and the next plan runs on those relative speeds.
-The timer is read exactly twice a mega-batch, at the reference's points,
-so the same readings give the same plans. Under the pipeline plan N+1 is
-made before window N is observed (one window stale), as in the reference.
+(``_observe_window``), and the next plan runs on those relative speeds;
+under the sharded placement each shard's own window
+(``ShardWindowTimer``) goes to ``observe_shards`` instead. The timer is
+read exactly twice a mega-batch, at the reference's points, so the same
+readings give the same plans. Under the pipeline plan N+1 is made before
+window N is observed (one window stale), as in the reference.
 ``keep_global_copies=False`` is the paper's §4 memory-lean merging: the
 algorithms that keep global/prev-global copies (``adaptive``,
 ``elastic``) start without them and merge without the momentum term until
-their barriers have produced both. The reference's per-shard timers
-(``ShardWindowTimer``) and host spans are not ported.
+their barriers have produced both.
 
 Device rule: ``device=None`` means CUDA and raises where there is none;
-the CPU runs only when asked for (``device="cpu"``), as the tests do. On
-the card the input layer and the merge run in the port's CUDA kernels.
+the CPU runs only when asked for (``device="cpu"``, or a mesh of CPU
+devices), as the tests do. Under the sharded placement ``mesh=None`` means
+every visible card (or ``[device]`` when a device is given). On the card
+the input layer and the merge run in the port's CUDA kernels.
 """
 from __future__ import annotations
 
@@ -88,6 +116,7 @@ import collections
 import copy
 import dataclasses
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -98,27 +127,35 @@ from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import adaptive_sgd as asgd
 from repro_torch.core import algorithms
-from repro_torch.core.heterogeneity import CostModel, MeasuredSpeedModel, SpeedModel
+from repro_torch.core.heterogeneity import (
+    CostModel,
+    MeasuredSpeedModel,
+    ShardWindowTimer,
+    SpeedModel,
+)
 from repro_torch.core.scheduler import DynamicScheduler
 from repro_torch.data.batcher import StagingBuffers
 from repro_torch.models.protocol import TrainableModel
 from repro_torch.optim.sgd import SGDConfig, init_momentum, sgd_update
+from repro_torch.sharding.executor import ShardExecutor
+from repro_torch.sharding.rules import REPLICA_AXIS, ReplicaMeshPool, mesh_devices, replica_block
 from repro_torch.utils import tree as tu
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import MetricsLog, log
 
 MERGE_COST = 5e-3  # default virtual seconds charged per merge (the all-reduce)
 ENGINES = ("scan", "legacy_loop")
+PLACEMENTS = ("vmap", "sharded")
 # the trainer's own arrays in a staging slot, beside the provider's fields
 _STAGED_MASK, _STAGED_LR = "_update_mask", "_lr"
 
 
 @dataclass
 class ElasticState:
-    replicas: dict                   # leaves (R, ...)
+    replicas: Any                    # leaves (R, ...); a ShardedTree if sharded
     global_model: Optional[dict]
     prev_global: Optional[dict]
-    momentum: Optional[dict]
+    momentum: Any                    # as replicas, or None
     b: np.ndarray                    # per-replica batch size (may be fractional)
     lr: np.ndarray                   # per-replica learning rate
     megabatch_idx: int = 0
@@ -149,10 +186,8 @@ class _StagedMegaBatch:
     """
 
     plan: Any                 # MegaBatchPlan
-    batches: dict             # device tensors, leaves (n_rounds, R, ...)
-    mask: torch.Tensor        # device (n_rounds, R) f32 update mask
-    mask_host: np.ndarray     # its host copy: which rounds have a live replica
-    lr_dev: torch.Tensor      # device (R,) f32 learning rates
+    shards: list              # per shard, on its device: (batches, mask, lr)
+    mask_host: np.ndarray     # host (n_rounds, R) mask: which rounds have a live replica
     b: np.ndarray             # host copies the plan was made for (validation)
     lr: np.ndarray
     megabatch_idx: int
@@ -161,8 +196,15 @@ class _StagedMegaBatch:
     snapshot: dict            # pre-staging cursor state (see above)
 
 
-def _to_device(arrays: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+def _to_device(arrays: dict, device: torch.device, non_blocking: bool = False) -> dict:
+    """Host arrays (numpy or torch) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device, non_blocking=non_blocking)
+            for k, v in arrays.items()}
+
+
+def _close_executors(executors: dict) -> None:
+    for ex in executors.values():
+        ex.close()
 
 
 def _nested(tree: Optional[dict]) -> Optional[dict]:
@@ -230,19 +272,36 @@ class ElasticTrainer:
     overlap: bool = True             # overlapped mega-batch pipeline (module
                                      # doc); scan engine only; False = the
                                      # sequential oracle
+    mesh: Any = None                 # replica mesh for cfg.placement='sharded'
+                                     # (devices; None = every visible card)
 
     def __post_init__(self):
         if self.engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {self.engine!r}")
-        if self.cfg.placement != "vmap":
+        if self.cfg.placement not in PLACEMENTS:
             raise ValueError(
-                f"only the 'vmap' placement is ported, got {self.cfg.placement!r}"
+                f"cfg.placement must be one of {PLACEMENTS}, got {self.cfg.placement!r}"
             )
-        self.device = resolve_device(self.device)
+        self._sharded = self.cfg.placement == "sharded"
+        self._axis = algorithms.replica_axis_name(self.cfg)
+        self._mesh_pool = None
+        self._executors: dict = {}       # shard count -> ShardExecutor
+        self._executor = None
+        if self._sharded:
+            self._setup_mesh()
+        elif self.mesh is not None:
+            raise ValueError("a replica mesh needs cfg.placement='sharded'")
+        else:
+            self.device = resolve_device(self.device)
         self.init_seconds = None  # set by init_state
         self.algo = algorithms.get(self.cfg.algorithm)
         if self.speed is None:
             self.speed = SpeedModel(self.cfg.n_replicas, seed=self.seed)
+        # one window per shard for a measured speed model (sharded only)
+        self._shard_timer = (
+            ShardWindowTimer()
+            if self._sharded and isinstance(self.speed, MeasuredSpeedModel) else None
+        )
         self.cost = CostModel(self.speed)
         self.scheduler = DynamicScheduler(self.cfg, self.cost)
         self._transforms = self.algo.round_transforms(self.cfg)
@@ -256,22 +315,176 @@ class ElasticTrainer:
         self.staging_log = collections.deque(maxlen=1024)
 
     # ------------------------------------------------------------------
+    # the sharded placement: mesh, executors, per-shard work
+    # ------------------------------------------------------------------
+    def _setup_mesh(self) -> None:
+        """The replica mesh and its pool (the reference's ``mesh=None``:
+        every visible card, or the given device; a given mesh must split R
+        evenly and seeds the pool), the home device (the mesh's first: the
+        globals, evaluation, checkpoints) and the executor."""
+        if self.mesh is None:
+            devices = None if self.device is None else [self.device]
+            self._mesh_pool = ReplicaMeshPool(devices)
+            self.mesh = self._mesh_pool.mesh_for(self.cfg.n_replicas)
+        else:
+            self.mesh = mesh_devices(self.mesh)
+            if self.cfg.n_replicas % len(self.mesh):
+                raise ValueError(
+                    f"n_replicas={self.cfg.n_replicas} not divisible by the replica mesh "
+                    f"({len(self.mesh)} devices)"
+                )
+            # a resize may need meshes of other shard counts: drawn from
+            # the devices the caller chose
+            self._mesh_pool = ReplicaMeshPool(self.mesh)
+            self._mesh_pool.adopt(self.mesh)
+        home = self._mesh_pool.devices[0]
+        if self.device is not None and mesh_devices([self.device])[0] != home:
+            raise ValueError(f"device {self.device} is not the mesh's first device {home}")
+        self.device = resolve_device(home)
+        weakref.finalize(self, _close_executors, self._executors)
+        self._install_executor()
+
+    def _install_executor(self) -> None:
+        """The executor of the current mesh's shard count: built once,
+        reused by every later resize back to that count."""
+        n = len(self.mesh)
+        if n not in self._executors:
+            self._executors[n] = ShardExecutor(self.mesh, REPLICA_AXIS)
+        self._executor = self._executors[n]
+
+    def close(self) -> None:
+        """Stop the sharded placement's worker threads (a no-op under vmap;
+        they are daemons, and are stopped when the trainer is collected)."""
+        _close_executors(self._executors)
+        self._executors.clear()
+        self._executor = None
+
+    @property
+    def _n_shards(self) -> int:
+        return len(self.mesh) if self._sharded else 1
+
+    def _rows(self, s: int) -> slice:
+        """The replicas shard ``s`` holds (all of them under vmap)."""
+        if not self._sharded:
+            return slice(0, self.cfg.n_replicas)
+        return replica_block(self.cfg.n_replicas, len(self.mesh), s)
+
+    def _shard_device(self, s: int) -> torch.device:
+        return self.mesh[s] if self._sharded else self.device
+
+    def _shards(self, fn, *trees) -> list:
+        """``fn(s, *blocks)`` for every shard, the results in shard order:
+        under vmap once, inline, on the whole trees; under sharded in every
+        shard's worker (its device and stream current, the replica axis
+        bound), on the shard's blocks. A tree is a replica tree in the
+        placement's layout, or None."""
+        if not self._sharded:
+            return [fn(0, *trees)]
+        blocks = [[None] * len(self.mesh) if t is None else t.blocks for t in trees]
+        return self._executor.run(lambda s: fn(s, *(b[s] for b in blocks)))
+
+    def _layout(self, blocks: list):
+        """Per-shard blocks as the placement's replica tree."""
+        if blocks[0] is None:
+            return None
+        return tu.ShardedTree(blocks) if self._sharded else blocks[0]
+
+    def _replicated(self, tree: Optional[dict]) -> dict:
+        """``tree`` (no replica dim) on every device of the mesh: one copy a
+        distinct device, keyed by device (the tree itself on its own)."""
+        if tree is None:
+            return {}
+        devices = dict.fromkeys(self.mesh if self._sharded else (self.device,))
+        return {d: tu.tree_map(lambda l, d=d: l.to(d), tree) for d in devices}
+
+    def _whole(self, tree):
+        """A replica tree as one (R, ...) dict on the home device."""
+        return tree.gather(self.device) if isinstance(tree, tu.ShardedTree) else tree
+
+    def _take_rows(self, tree, rows, n_total: int, fill: Optional[dict] = None):
+        """A new replica tree of ``n_total`` replicas in the current layout:
+        replica j is a copy of ``tree``'s replica ``rows[j]`` (``tree`` in
+        either layout, on the devices it was on), and every replica past
+        ``len(rows)`` is ``fill`` (one replica) or zeros."""
+        src = tree.blocks if isinstance(tree, tu.ShardedTree) else [tree]
+        per_src = next(iter(src[0].values())).shape[0]
+        per_dst = n_total // self._n_shards
+        fills = self._replicated(fill)
+
+        def row(j, k, dev):
+            if j < len(rows):
+                b, i = divmod(rows[j], per_src)
+                return src[b][k][i:i + 1].to(dev)
+            like = src[0][k]
+            if fill is None:
+                return torch.zeros((1,) + like.shape[1:], dtype=like.dtype, device=dev)
+            return fills[dev][k].to(like.dtype).unsqueeze(0)
+
+        return self._layout([
+            {k: torch.cat([row(j, k, self._shard_device(s))
+                           for j in range(s * per_dst, (s + 1) * per_dst)]) for k in src[0]}
+            for s in range(self._n_shards)
+        ])
+
+    def _broadcast(self, tree: dict):
+        """``tree`` copied into every replica, in the current layout."""
+        copies = self._replicated(tree)
+        return self._layout([
+            tu.tree_broadcast_replicas(copies[self._shard_device(s)],
+                                       self._rows(s).stop - self._rows(s).start)
+            for s in range(self._n_shards)
+        ])
+
+    # ------------------------------------------------------------------
     # tensor math exposed to Algorithm.merge implementations
     # ------------------------------------------------------------------
     def merge_models(self, replicas, alphas, global_model, prev_global, gamma):
-        """``merge_replicas``: (new_global, replicas reset to it)."""
-        return merge_replicas(replicas, alphas, global_model, prev_global, gamma)
+        """``merge_replicas`` under the placement: (new_global, replicas
+        reset to it). Under sharded, every shard merges its own replicas
+        and the partials are summed over the shards (``normalized_merge``'s
+        axis branch)."""
+        return self._merge(replicas, alphas, global_model, prev_global, gamma)
+
+    def _merge(self, replicas, alphas, global_model, prev_global, gamma, broadcast=True):
+        """(new global on the home device, the replicas reset to it in the
+        placement's layout, or None without ``broadcast``)."""
+        if not self._sharded:
+            if broadcast:
+                return merge_replicas(replicas, alphas, global_model, prev_global, gamma)
+            return asgd.normalized_merge(replicas, alphas, global_model, prev_global,
+                                         gamma), None
+        alphas = np.asarray(alphas, np.float64)
+        g, gp = self._replicated(global_model), self._replicated(prev_global)
+
+        def one(s, block):
+            dev, rows = self.mesh[s], self._rows(s)
+            new = asgd.normalized_merge(block, alphas[rows], g.get(dev), gp.get(dev), gamma,
+                                        axis=self._axis)
+            return new, (tu.tree_broadcast_replicas(new, rows.stop - rows.start)
+                         if broadcast else None)
+
+        outs = self._shards(one, replicas)
+        return outs[0][0], self._layout([o[1] for o in outs]) if broadcast else None
 
     def replica_norms(self, replicas) -> np.ndarray:
         """(R,) per-replica L2 norms on the host (feeds Alg. 2's
-        perturbation condition)."""
-        return tu.tree_l2_norm_per_replica(replicas).cpu().numpy()
+        perturbation condition); per shard under sharded."""
+        outs = self._shards(lambda s, b: tu.tree_l2_norm_per_replica(b), replicas)
+        return np.concatenate([o.cpu().numpy() for o in outs])
+
+    def apply_replicas(self, fn, replicas):
+        """``fn(replicas, axis) -> (replica tree, extra)`` over the whole
+        population under the placement: once on the whole tree (axis None)
+        under vmap, on every shard's block with the replica axis bound under
+        sharded. Returns (the replicas in the placement's layout, shard 0's
+        extra, on the home device)."""
+        outs = self._shards(lambda s, b: fn(b, self._axis), replicas)
+        return self._layout([o[0] for o in outs]), outs[0][1]
 
     # ------------------------------------------------------------------
     # state init
     # ------------------------------------------------------------------
     def init_state(self) -> ElasticState:
-        R = self.cfg.n_replicas
         # a CPU generator: the same seed gives the same weights on every
         # device (about 10 s for a 1.1 B-parameter LM; ``init_seconds``)
         t0 = time.perf_counter()
@@ -280,8 +493,11 @@ class ElasticTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.init_seconds = time.perf_counter() - t0
-        replicas = tu.tree_broadcast_replicas(params, R)
-        momentum = init_momentum(replicas, self.sgd)
+        replicas = self._broadcast(params)
+        momentum = self._layout([
+            init_momentum(b, self.sgd)
+            for b in (replicas.blocks if self._sharded else [replicas])
+        ])
         extras = self.algo.init_state_extras(self.cfg, params, self.keep_global_copies)
         b = np.asarray(extras.b, np.float64)
         lr = self.base_lr * b / self.cfg.b_max  # linear-scaling rule
@@ -321,9 +537,10 @@ class ElasticTrainer:
         no-op). A prefetched plan was made for the old R: it is revoked
         (``invalidate_prefetch``) before anything changes, but not by a
         resize to the current R, so a constant schedule keeps it. Treat the
-        input state as consumed. The reference's re-shard (sharded
-        placement; under vmap the new tensors are already on the trainer's
-        device) is not ported.
+        input state as consumed. Under the sharded placement the final
+        merge runs on the old mesh, then the mesh for ``new_R`` comes from
+        the pool (``_adopt_width``) and the carried rows are copied onto its
+        shards (the reference's re-shard).
         """
         new_R = int(self.algo.resolve_n_replicas(int(new_R)))
         R = self.cfg.n_replicas
@@ -335,36 +552,26 @@ class ElasticTrainer:
 
         # ---- final normalized merge over the outgoing population ----
         alphas = np.asarray(state.b, np.float64)
-        merged = asgd.normalized_merge(state.replicas, alphas / alphas.sum(), None, None, 0.0)
+        merged, _ = self._merge(state.replicas, alphas / alphas.sum(), None, None, 0.0,
+                                broadcast=False)
 
-        # ---- carry parameters / momentum to the new population ----
-        keep = min(R, new_R)
-
-        def grown(l, fill):
-            """(R, ...) leaf -> (new_R, ...): a copy of the survivors' rows,
-            then ``fill`` (one row) for every joiner."""
-            if new_R == keep:
-                return l[:keep].clone()
-            extra = fill.to(l.dtype).expand((new_R - keep,) + l.shape[1:])
-            return torch.cat([l[:keep], extra])
-
-        if self.algo.resize_policy == "preserve":
-            new_replicas = tu.tree_map(lambda l, g: grown(l, g.unsqueeze(0)),
-                                       state.replicas, merged)
-        else:  # 'merge': everyone restarts from the merged global
-            new_replicas = tu.tree_broadcast_replicas(merged, new_R)
-        new_momentum = None
-        if state.momentum is not None:
-            new_momentum = tu.tree_map(
-                lambda l: grown(l, l.new_zeros((1,) + l.shape[1:])), state.momentum
-            )
-        new_global = merged if state.global_model is not None else None
-        new_prev = merged if state.prev_global is not None else None
-
-        # ---- re-plan: config, batch plan, speeds, virtual clocks ----
+        # ---- re-plan: config, batch plan, speeds, virtual clocks, mesh ----
         new_cfg = dataclasses.replace(self.cfg, n_replicas=new_R)
         new_b, new_lr = self.algo.resize_b(new_cfg, state.b, state.lr, self.base_lr)
         self._adopt_width(new_R)
+
+        # ---- carry parameters / momentum to the new population: copies of
+        # the survivors' rows, then a fill for every joiner ----
+        survivors = list(range(min(R, new_R)))
+        if self.algo.resize_policy == "preserve":
+            new_replicas = self._take_rows(state.replicas, survivors, new_R, fill=merged)
+        else:  # 'merge': everyone restarts from the merged global
+            new_replicas = self._broadcast(merged)
+        new_momentum = None
+        if state.momentum is not None:
+            new_momentum = self._take_rows(state.momentum, survivors, new_R)
+        new_global = merged if state.global_model is not None else None
+        new_prev = merged if state.prev_global is not None else None
         return ElasticState(
             replicas=new_replicas,
             global_model=new_global,
@@ -376,22 +583,32 @@ class ElasticTrainer:
         )
 
     def _adopt_width(self, new_R: int) -> None:
-        """Adopt a new replica count: config, speed model and scheduler.
-        The population-agnostic half of ``resize``, reused by
-        ``restore_checkpoint`` when the checkpointed width differs from the
-        trainer's construction width."""
+        """Adopt a new replica count: config, speed model, scheduler and,
+        under the sharded placement, the pool's mesh for ``new_R`` and its
+        cached executor. The population-agnostic half of ``resize``, reused
+        by ``restore_checkpoint`` when the checkpointed width differs from
+        the trainer's construction width."""
         self.cfg = dataclasses.replace(self.cfg, n_replicas=new_R)
         self.speed.resize(new_R)
         self.scheduler.resize(self.cfg)
+        if self._sharded:
+            self.mesh = self._mesh_pool.mesh_for(new_R)
+            self._install_executor()
 
     def _place_state(self, replicas, momentum, global_model, prev_global):
-        """Move restored state trees to the trainer's device (the
-        reference's device_put onto the replica mesh; only the vmap
-        placement is ported, so this is a ``.to(device)``)."""
+        """Move restored (R, ...) state trees onto the placement: the
+        trainer's device under vmap; under sharded each shard's block onto
+        its device (copies) and the globals onto the home device (the
+        reference's device_put onto the replica mesh)."""
         def put(tree):
             return None if tree is None else tu.tree_map(lambda l: l.to(self.device), tree)
 
-        return put(replicas), put(momentum), put(global_model), put(prev_global)
+        def split(tree):
+            if tree is None or not self._sharded:
+                return put(tree)
+            return self._take_rows(tree, list(range(self.cfg.n_replicas)), self.cfg.n_replicas)
+
+        return split(replicas), split(momentum), put(global_model), put(prev_global)
 
     def remove_replicas(self, state: ElasticState, indices,
                         merge_leavers: bool = True) -> ElasticState:
@@ -409,7 +626,8 @@ class ElasticTrainer:
         survivors and a NaN never reaches the weighted sum (0 * NaN is NaN,
         hence the zeroing). A prefetched plan is revoked first: the
         permutation moves speed factors and clocks it consumed in the old
-        order. The reference's host-span branch is not ported.
+        order. Under the sharded placement the permuted rows are copied
+        across the shards. The reference's host-span branch is not ported.
         """
         R = self.cfg.n_replicas
         drop = sorted({int(i) for i in indices})
@@ -425,14 +643,13 @@ class ElasticTrainer:
         perm = survivors + drop
 
         if perm != list(range(R)):
-            index = torch.tensor(perm, device=self.device)
-            take = lambda l: l.index_select(0, index)  # noqa: E731
             state = ElasticState(
-                replicas=tu.tree_map(take, state.replicas),
+                replicas=self._take_rows(state.replicas, perm, R),
                 global_model=state.global_model,
                 prev_global=state.prev_global,
                 momentum=(
-                    tu.tree_map(take, state.momentum) if state.momentum is not None else None
+                    self._take_rows(state.momentum, perm, R)
+                    if state.momentum is not None else None
                 ),
                 b=np.asarray(state.b, np.float64)[perm],
                 lr=np.asarray(state.lr, np.float64)[perm],
@@ -443,15 +660,10 @@ class ElasticTrainer:
 
         if not merge_leavers:
             keep = R - len(drop)
-            mask = torch.arange(R, device=self.device) < keep
-            zero_tail = lambda l: torch.where(  # noqa: E731
-                mask.view((-1,) + (1,) * (l.ndim - 1)), l, torch.zeros((), dtype=l.dtype,
-                                                                       device=l.device)
-            )
             b = np.asarray(state.b, np.float64).copy()
             b[keep:] = 0.0
             state = dataclasses.replace(
-                state, replicas=tu.tree_map(zero_tail, state.replicas), b=b
+                state, replicas=tu.tree_fill_rows(state.replicas, range(keep, R), 0.0), b=b
             )
 
         return self.resize(state, R - len(drop))
@@ -471,31 +683,60 @@ class ElasticTrainer:
         return train_round(self._grads, replicas, momentum, batch, lr_vec, update_mask,
                            self.sgd, self._transforms, live)
 
-    def _dispatch_rounds(self, state: ElasticState, batches: dict, mask, mask_host, lr):
-        """Issue every round of a stacked plan on the device; returns
+    def _live(self, mask_row) -> bool:
+        """Whether a round has an unmasked replica anywhere: the shard's own
+        row of the mask, and under sharded the maximum over the shards
+        where the round has a post-round hook (its only reader)."""
+        live = bool(np.any(mask_row))
+        if self._transforms.post_round is not None:
+            live = bool(tu.replica_all_max(live, self._axis))
+        return live
+
+    def _dispatch_rounds(self, state: ElasticState, shards: list, mask_host: np.ndarray):
+        """Issue every round of a stacked plan on every shard; returns
         ``(replicas, momentum, stats)`` with ``stats`` the (n_rounds, 4)
         device tensor of per-round (loss, accuracy, samples, live), reduced
-        with the reference's normalization. No host sync: ``mask_host`` is
-        the host copy of ``mask``, read for each round's ``live``."""
-        replicas, momentum = state.replicas, state.momentum
-        stats = []
-        for r in range(len(mask_host)):
-            m = mask[r]
-            replicas, momentum, loss, aux = self._round(
-                replicas, momentum, {k: v[r] for k, v in batches.items()}, lr, m,
-                live=bool(mask_host[r].any()),
+        with the reference's normalization. ``shards`` holds each shard's
+        (batches, mask, lr) on its device, ``mask_host`` the host copy of
+        the whole (n_rounds, R) mask, read for each round's ``live``: no
+        host sync. Under sharded each shard marks its window for a measured
+        speed model (``ShardWindowTimer``) around its rounds, and the
+        per-round metric sums are summed over the shards before the
+        normalization (the reference's psum in the scan)."""
+        timer = self._shard_timer
+
+        def one(s, replicas, momentum):
+            batches, mask, lr = shards[s]
+            local = mask_host[:, self._rows(s)]
+            stream = torch.cuda.current_stream(mask.device) if mask.is_cuda else None
+            if timer is not None:
+                timer.mark_start(s, stream)
+            sums = []
+            for r in range(len(local)):
+                m = mask[r]
+                replicas, momentum, loss, aux = self._round(
+                    replicas, momentum, {k: v[r] for k, v in batches.items()}, lr, m,
+                    live=self._live(local[r]),
+                )
+                sums.append(torch.stack([
+                    (loss * m).sum(),
+                    (aux["accuracy"] * m).sum(),
+                    (aux["n_valid"] * m).sum(),
+                    m.sum(),
+                ]))
+            if timer is not None:
+                timer.mark_end(s, stream)
+            sums = tu.replica_all_sum(torch.stack(sums), self._axis)
+            denom = sums[:, 3].clamp_min(1.0)
+            stats = torch.stack(
+                [sums[:, 0] / denom, sums[:, 1] / denom, sums[:, 2], (sums[:, 3] > 0).float()],
+                dim=1,
             )
-            sums = torch.stack([
-                (loss * m).sum(),
-                (aux["accuracy"] * m).sum(),
-                (aux["n_valid"] * m).sum(),
-                m.sum(),
-            ])
-            denom = sums[3].clamp_min(1.0)
-            stats.append(torch.stack(
-                [sums[0] / denom, sums[1] / denom, sums[2], (sums[3] > 0).float()]
-            ))
-        return replicas, momentum, torch.stack(stats)
+            return replicas, momentum, stats
+
+        outs = self._shards(one, state.replicas, state.momentum)
+        return (self._layout([o[0] for o in outs]), self._layout([o[1] for o in outs]),
+                outs[0][2])
 
     @staticmethod
     def _finish_metrics(stats) -> tuple[float, float]:
@@ -505,20 +746,52 @@ class ElasticTrainer:
         loss, acc = (torch.stack([stats[:, 0].sum(), stats[:, 1].sum()]) / n_live).tolist()
         return loss, acc
 
+    def _pack_plan(self, grid, lr, b_slots: int, host: Optional[dict] = None):
+        """Each shard's column block of the plan grid, packed: a list of
+        host array dicts (the provider's fields, the update mask under
+        ``_STAGED_MASK``, the shard's learning rates under ``_STAGED_LR``),
+        written into the views ``host[(name, shard)]`` of a staging slot
+        when given; and the whole (n_rounds, R) host mask."""
+        lr32 = np.asarray(lr, np.float32)
+        packed, masks = [], []
+        for s in range(self._n_shards):
+            rows = self._rows(s)
+            sub = [row[rows] for row in grid]
+            if host is None:
+                arrays, mask_np = self.provider.stack_plan(sub, b_slots)
+                arrays = dict(arrays, **{_STAGED_MASK: mask_np, _STAGED_LR: lr32[rows]})
+            else:
+                fields = [k for k, i in host if i == s and k not in (_STAGED_MASK, _STAGED_LR)]
+                _, mask_np = self.provider.stack_plan(
+                    sub, b_slots, out={k: host[(k, s)].numpy() for k in fields})
+                host[(_STAGED_MASK, s)].numpy()[...] = mask_np
+                host[(_STAGED_LR, s)].numpy()[...] = lr32[rows]
+                arrays = {k: host[(k, s)] for k in fields + [_STAGED_MASK, _STAGED_LR]}
+            packed.append(arrays)
+            masks.append(mask_np)
+        return packed, np.concatenate(masks, axis=1)
+
+    def _upload(self, packed: list, non_blocking: bool = False) -> list:
+        """Each shard's packed arrays onto its device, on its stream:
+        ``[(batches, mask, lr)]`` in shard order."""
+        def one(s):
+            arrays = _to_device(packed[s], self._shard_device(s), non_blocking)
+            mask, lr = arrays.pop(_STAGED_MASK), arrays.pop(_STAGED_LR)
+            return arrays, mask, lr
+
+        return self._shards(one)
+
     def _run_rounds_scan(self, state: ElasticState, plan, b_slots: int):
         """Upload the stacked plan once, run its rounds on the device, and
         read the mega-batch's (loss, accuracy) back in one host sync."""
         t0 = time.perf_counter()
         grid = plan.payload_grid(self.cfg.n_replicas)
-        batches_np, mask_np = self.provider.stack_plan(grid, b_slots)
-        lr_np = np.asarray(state.lr, np.float32)
+        packed, mask_np = self._pack_plan(grid, state.lr, b_slots)
         t1 = time.perf_counter()
-        batches = _to_device(batches_np, self.device)
-        mask = torch.from_numpy(mask_np).to(self.device)
-        lr = torch.from_numpy(lr_np).to(self.device)
+        shards = self._upload(packed)
         self._log_staging(state.megabatch_idx, None, t0, t1, time.perf_counter(),
-                          [*batches_np.values(), mask_np, lr_np])
-        replicas, momentum, stats = self._dispatch_rounds(state, batches, mask, mask_np, lr)
+                          [a for arrays in packed for a in arrays.values()])
+        replicas, momentum, stats = self._dispatch_rounds(state, shards, mask_np)
         loss, acc = self._finish_metrics(stats)
         return replicas, momentum, loss, acc
 
@@ -536,21 +809,35 @@ class ElasticTrainer:
     def _run_rounds_legacy(self, state: ElasticState, plan, b_slots: int):
         """The reference's per-round host loop: one upload per round, empty
         slots filled with ``provider.empty``, and the loss and accuracy of
-        each round with a live replica read back and averaged on the host."""
+        each round with a live replica read back and averaged on the host
+        (under sharded, each shard runs its rows of the round)."""
         replicas, momentum = state.replicas, state.momentum
-        lr = torch.from_numpy(np.asarray(state.lr, np.float32)).to(self.device)
+        lr_np = np.asarray(state.lr, np.float32)
+        lrs = self._shards(
+            lambda s: torch.from_numpy(lr_np[self._rows(s)]).to(self._shard_device(s)))
         losses, accs = [], []
         for row in plan.payload_grid(self.cfg.n_replicas):
             payloads = [p if p is not None else self.provider.empty(b_slots) for p in row]
             w = np.asarray([1.0 if p is not None else 0.0 for p in row], np.float32)
-            batch = _to_device(self.provider.stack(payloads), self.device)
-            replicas, momentum, loss, aux = self._round(
-                replicas, momentum, batch, lr, torch.from_numpy(w).to(self.device),
-                live=bool(w.sum() > 0),
-            )
+            batch_np = self.provider.stack(payloads)
+
+            def one(s, reps, mom, batch_np=batch_np, w=w):
+                rows, dev = self._rows(s), self._shard_device(s)
+                batch = _to_device({k: v[rows] for k, v in batch_np.items()}, dev)
+                reps, mom, loss, aux = self._round(
+                    reps, mom, batch, lrs[s], torch.from_numpy(w[rows]).to(dev),
+                    live=self._live(w[rows]),
+                )
+                return reps, mom, loss, aux["accuracy"]
+
+            outs = self._shards(one, replicas, momentum)
+            replicas = self._layout([o[0] for o in outs])
+            momentum = self._layout([o[1] for o in outs])
             if w.sum() > 0:
-                losses.append(float((loss.cpu().numpy() * w).sum() / w.sum()))
-                accs.append(float((aux["accuracy"].cpu().numpy() * w).sum() / w.sum()))
+                loss = np.concatenate([o[2].cpu().numpy() for o in outs])
+                acc = np.concatenate([o[3].cpu().numpy() for o in outs])
+                losses.append(float((loss * w).sum() / w.sum()))
+                accs.append(float((acc * w).sum() / w.sum()))
         loss = float(np.mean(losses)) if losses else float("nan")
         acc = float(np.mean(accs)) if accs else float("nan")
         return replicas, momentum, loss, acc
@@ -560,40 +847,55 @@ class ElasticTrainer:
     # ------------------------------------------------------------------
     def _finite_rows(self, replicas) -> np.ndarray:
         """(R,) bool on the host: replica i's leaves are all finite."""
-        parts = [torch.isfinite(l.float()).flatten(1).all(dim=1) for l in replicas.values()]
-        return torch.stack(parts).all(dim=0).cpu().numpy()
+        def one(s, block):
+            parts = [torch.isfinite(l.float()).flatten(1).all(dim=1) for l in block.values()]
+            return torch.stack(parts).all(dim=0)
+
+        return np.concatenate([o.cpu().numpy() for o in self._shards(one, replicas)])
 
     def _repair_nonfinite(self, state, replicas, momentum, finite):
         """Re-clone non-finite replicas from a finite donor.
 
         The poisoned rows are zeroed first (``0 * NaN`` is still NaN), then
         overwritten with the donor: the Algorithm-2 normalized merge of the
-        finite rows, weights ``b_i`` restricted to them. A fully diverged
-        population restarts from the last barrier global; without one the
-        guard raises. Healed replicas continue with zeroed momentum.
+        finite rows, weights ``b_i`` restricted to them (summed over the
+        shards under sharded). A fully diverged population restarts from the
+        last barrier global; without one the guard raises. Healed replicas
+        continue with zeroed momentum.
         """
-        keep = torch.from_numpy(finite).to(self.device)
-
-        def keep_rows(l, fill):
-            return torch.where(keep.view((-1,) + (1,) * (l.ndim - 1)), l, fill)
-
-        replicas = tu.tree_map(lambda l: keep_rows(l, torch.zeros_like(l)), replicas)
+        alphas, donors = None, None
         if finite.any():
             alphas = np.where(finite, np.asarray(state.b, np.float64), 0.0)
-            donor = asgd.normalized_merge(replicas, alphas / alphas.sum(), None, None, 0.0)
+            alphas = alphas / alphas.sum()
         elif state.global_model is not None:
-            donor = state.global_model
+            donors = self._replicated(state.global_model)
         else:
             raise FloatingPointError(
                 "all replicas diverged to non-finite values and algorithm "
                 f"{self.algo.name!r} keeps no global model to restart from"
             )
-        replicas = tu.tree_map(
-            lambda l, g: keep_rows(l, g.to(l.dtype).expand_as(l)), replicas, donor
-        )
-        if momentum is not None:
-            momentum = tu.tree_map(lambda l: keep_rows(l, torch.zeros_like(l)), momentum)
-        return replicas, momentum
+
+        def one(s, block, mom):
+            rows, dev = self._rows(s), self._shard_device(s)
+            keep = torch.from_numpy(finite[rows].copy()).to(dev)
+
+            def keep_rows(l, fill):
+                return torch.where(keep.view((-1,) + (1,) * (l.ndim - 1)), l, fill)
+
+            block = tu.tree_map(lambda l: keep_rows(l, torch.zeros_like(l)), block)
+            if donors is None:
+                donor = asgd.normalized_merge(block, alphas[rows], None, None, 0.0,
+                                              axis=self._axis)
+            else:
+                donor = donors[dev]
+            block = tu.tree_map(lambda l, g: keep_rows(l, g.to(l.dtype).expand_as(l)),
+                                block, donor)
+            if mom is not None:
+                mom = tu.tree_map(lambda l: keep_rows(l, torch.zeros_like(l)), mom)
+            return block, mom
+
+        outs = self._shards(one, replicas, momentum)
+        return self._layout([o[0] for o in outs]), self._layout([o[1] for o in outs])
 
     # ------------------------------------------------------------------
     # one mega-batch
@@ -639,6 +941,8 @@ class ElasticTrainer:
         # plan runs on the relative speeds this one observed
         measure = isinstance(self.speed, MeasuredSpeedModel)
         t_start = self.speed.begin() if measure else None
+        if self._shard_timer is not None:
+            self._shard_timer.reset(self._n_shards)
         if self.engine == "legacy_loop":
             replicas, momentum, train_loss, train_acc = self._run_rounds_legacy(
                 state, plan, b_slots)
@@ -688,8 +992,9 @@ class ElasticTrainer:
         plan = staged.plan
         measure = isinstance(self.speed, MeasuredSpeedModel)
         t_start = self.speed.begin() if measure else None
-        replicas, momentum, stats = self._dispatch_rounds(
-            state, staged.batches, staged.mask, staged.mask_host, staged.lr_dev)
+        if self._shard_timer is not None:
+            self._shard_timer.reset(self._n_shards)
+        replicas, momentum, stats = self._dispatch_rounds(state, staged.shards, staged.mask_host)
 
         # ---- host work overlapped with the rounds on the device ----
         n_merges = self.algo.merges_per_megabatch(plan)
@@ -701,7 +1006,8 @@ class ElasticTrainer:
 
         # ---- collect: the one host sync of the mega-batch ----
         train_loss, train_acc = self._finish_metrics(stats)
-        # the slot's consumer is done on the device: reusable two stagings on
+        # every shard's rounds, the slot's consumers, are done on the device
+        # (the collect waited for them all): reusable two stagings on
         self._staging.release(staged.slot_id)
         if measure:
             self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
@@ -717,13 +1023,20 @@ class ElasticTrainer:
                                       train_loss, train_acc, virtual_time, guard_repaired)
 
     def _observe_window(self, plan, R: int, seconds: float) -> None:
-        """Feed one mega-batch's measurement window to the speed model,
-        attributed per replica by its scheduled share of the plan (the
-        whole-window path; the reference's per-shard windows come from its
-        sharded placement, which is not ported)."""
-        self.speed.observe_plan(
-            plan.per_replica_work(R), seconds, u=plan.u, n_rounds=plan.n_rounds,
-        )
+        """Feed one mega-batch's measurement window to the speed model: the
+        shards' own windows (``observe_shards``) when the sharded executors
+        marked a complete set, else the whole window, attributed per
+        replica by its scheduled share of the plan (the vmap placement, the
+        legacy engine)."""
+        windows = self._shard_timer.take() if self._shard_timer is not None else None
+        if windows is not None:
+            self.speed.observe_shards(
+                windows, plan.per_replica_work(R), u=plan.u, n_rounds=plan.n_rounds,
+            )
+        else:
+            self.speed.observe_plan(
+                plan.per_replica_work(R), seconds, u=plan.u, n_rounds=plan.n_rounds,
+            )
 
     def _megabatch_result(self, state, plan, outcome, momentum, new_b, new_lr,
                           train_loss, train_acc, virtual_time, guard_repaired):
@@ -782,9 +1095,11 @@ class ElasticTrainer:
         (pinned on the card; XML: one fused gather), the update mask and
         the learning rates beside it, and issues one asynchronous copy of
         each array on the current stream: queued behind the rounds already
-        issued, so nothing waits on the host. The cursor snapshot is taken
-        first, which makes the staging revocable (``invalidate_prefetch``)
-        and checkpoint-safe (``checkpoint_payload``).
+        issued, so nothing waits on the host. Under sharded the slot holds
+        every shard's column block apart, and each is copied to its shard's
+        device on the shard's stream. The cursor snapshot is taken first,
+        which makes the staging revocable (``invalidate_prefetch``) and
+        checkpoint-safe (``checkpoint_payload``).
         """
         cfg = self.cfg
         R = cfg.n_replicas
@@ -803,21 +1118,21 @@ class ElasticTrainer:
         plan = self.algo.plan(self.scheduler, _PlanView(b, lr, megabatch_idx), mega_samples, fetch)
         grid = plan.payload_grid(R)
         t_pack = time.perf_counter()
-        spec = dict(provider.staging_spec(len(grid), R, b_slots))
-        spec[_STAGED_MASK] = ((len(grid), R), np.float32)
-        spec[_STAGED_LR] = ((R,), np.float32)
+        spec = {}
+        for s in range(self._n_shards):
+            n = self._rows(s).stop - self._rows(s).start
+            for k, v in provider.staging_spec(len(grid), n, b_slots).items():
+                spec[(k, s)] = v
+            spec[(_STAGED_MASK, s)] = ((len(grid), n), np.float32)
+            spec[(_STAGED_LR, s)] = ((n,), np.float32)
         slot_id, host = self._staging.acquire(spec)
-        out = {k: host[k].numpy() for k in spec if k not in (_STAGED_MASK, _STAGED_LR)}
-        _, mask_np = provider.stack_plan(grid, b_slots, out=out)
-        host[_STAGED_MASK].numpy()[...] = mask_np
-        host[_STAGED_LR].numpy()[...] = lr
+        packed, mask_np = self._pack_plan(grid, lr, b_slots, host=host)
         t_upload = time.perf_counter()
-        dev = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-        mask_dev, lr_dev = dev.pop(_STAGED_MASK), dev.pop(_STAGED_LR)
+        shards = self._upload(packed, non_blocking=True)
         self._log_staging(megabatch_idx, t_plan, t_pack, t_upload, time.perf_counter(),
                           host.values())
         return _StagedMegaBatch(
-            plan=plan, batches=dev, mask=mask_dev, mask_host=mask_np, lr_dev=lr_dev,
+            plan=plan, shards=shards, mask_host=mask_np,
             b=b, lr=lr, megabatch_idx=int(megabatch_idx), n_replicas=R,
             slot_id=slot_id, snapshot=snapshot,
         )
@@ -944,8 +1259,10 @@ class ElasticTrainer:
         trained on, the cursors from before its staging plan (provider,
         clocks, speed model) are stored instead of the live ones, so a
         restore replays it instead of skipping it (a measured speed model's
-        EMAs are observation history, not plan cursors, and stay live). The
-        reference's host-span branch is not ported."""
+        EMAs are observation history, not plan cursors, and stay live).
+        Under sharded the shards' blocks are gathered into whole trees on
+        the home device, so the format is the same under either placement.
+        The reference's host-span branch is not ported."""
         speed_sd = self.speed.state_dict()
         provider_sd = (
             self.provider.state_dict() if hasattr(self.provider, "state_dict") else None
@@ -959,8 +1276,8 @@ class ElasticTrainer:
             if snap["speed"] is not None:
                 speed_sd = snap["speed"]
         tree = {
-            "replicas": _nested(state.replicas),
-            "momentum": _nested(state.momentum),
+            "replicas": _nested(self._whole(state.replicas)),
+            "momentum": _nested(self._whole(state.momentum)),
             "global_model": _nested(state.global_model),
             "prev_global": _nested(state.prev_global),
             "b": np.asarray(state.b, np.float64),

@@ -8,16 +8,21 @@ the sources and flags, so unchanged sources load the existing library and
 an edited one rebuilds. Nothing is compiled when this module is imported:
 the first wrapper that meets a CUDA tensor calls :func:`library`. A failed
 build raises; no caller falls back to a plain version.
+
+The sharded placement launches kernels from one thread per shard: the
+first build and load happen once however many threads ask at once, and
+every wrapper counts its launches through :func:`count_launch`, under a
+lock, so no increment is lost.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -108,15 +113,39 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
+_library = None                     # the loaded library, once loaded
+_library_lock = threading.Lock()    # one build and one load across threads
+_count_lock = threading.Lock()      # the wrappers' launch counters
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library, built at first use (once, whichever
+    threads ask for it together)."""
+    global _library
+    with _library_lock:
+        if _library is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _library = lib
+    return _library
+
+
+def loaded() -> bool:
+    """Whether :func:`library` has built and loaded the kernels."""
+    return _library is not None
+
+
+def count_launch(wrapper, **counters: int) -> None:
+    """Add one to ``wrapper.launches`` and each named counter's value to
+    that attribute of ``wrapper``, under a lock: shard threads launch at
+    once, and the counts are what checks read."""
+    with _count_lock:
+        wrapper.launches += 1
+        for name, n in counters.items():
+            setattr(wrapper, name, getattr(wrapper, name) + int(n))
 
 
 def check(err: int, kernel: str) -> None:

@@ -62,8 +62,8 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "flash_attention")
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.tensor_core_launches += PATHS[q.dtype] == "tensor_core"
+    _build.count_launch(flash_attention_cuda,
+                        tensor_core_launches=PATHS[q.dtype] == "tensor_core")
     return out
 
 

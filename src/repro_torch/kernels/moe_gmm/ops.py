@@ -78,8 +78,7 @@ def moe_ffn_gmm_cuda(buf, wi, wg, wo):
             torch.cuda.current_stream(buf.device).cuda_stream,
         )
     _build.check(err, "moe_ffn_gmm")
-    moe_ffn_gmm_cuda.launches += 1
-    moe_ffn_gmm_cuda.tensor_core_launches += tensor_core
+    _build.count_launch(moe_ffn_gmm_cuda, tensor_core_launches=tensor_core)
     return out[..., :d] if dp != d else out
 
 

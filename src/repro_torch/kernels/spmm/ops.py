@@ -113,7 +113,7 @@ def spmm_cuda(feat_idx, feat_val, feat_mask, w):
             torch.cuda.current_stream(w.device).cuda_stream,
         )
     _build.check(err, "spmm")
-    spmm_cuda.launches += 1
+    _build.count_launch(spmm_cuda)
     return out
 
 
@@ -145,7 +145,7 @@ def sort_rows_cuda(keys, n_rows: int, named=None):
             torch.cuda.current_stream(keys.device).cuda_stream,
         )
     _build.check(err, "spmm_sort_rows")
-    sort_rows_cuda.launches += 1
+    _build.count_launch(sort_rows_cuda)
     return rows, order
 
 
@@ -186,7 +186,7 @@ def spmm_grad_w_cuda(feat_idx, feat_val, feat_mask, dh, n_rows: int):
             torch.cuda.current_stream(dh.device).cuda_stream,
         )
     _build.check(err, "spmm_grad_w")
-    spmm_grad_w_cuda.launches += 1
+    _build.count_launch(spmm_grad_w_cuda)
     return out if dh.ndim == 3 else out[0]
 
 

@@ -81,8 +81,7 @@ def ssd_scan_cuda(x, dA, Bm, Cm, chunk: int = 256):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "ssd_scan")
-    ssd_scan_cuda.launches += 1
-    ssd_scan_cuda.tensor_core_launches += PATHS[x.dtype] == "tensor_core"
+    _build.count_launch(ssd_scan_cuda, tensor_core_launches=PATHS[x.dtype] == "tensor_core")
     return y, final
 
 

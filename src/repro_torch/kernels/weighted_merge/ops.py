@@ -58,8 +58,7 @@ def merge_cuda(replicas, alphas, g=None, gp=None, gamma: float = 0.0):
             torch.cuda.current_stream(replicas.device).cuda_stream,
         )
     _build.check(err, "weighted_merge")
-    merge_cuda.launches += 1
-    merge_cuda.no_momentum_launches += int(not momentum)
+    _build.count_launch(merge_cuda, no_momentum_launches=not momentum)
     return out
 
 

@@ -5,7 +5,8 @@ paper's 3-layer sparse MLP on synthetic XML data (``--workload xml``) or a
 decoder-only LM architecture on a synthetic token stream (``--workload
 lm``, the default, with ``--arch`` default tinyllama-1.1b), with the same
 flags, defaults and log lines as the reference (the subset this port
-supports: ``--engine``, ``--overlap``, ``--speed``, ``--dense-grads``, ``--arch``,
+supports: ``--engine``, ``--overlap``, ``--placement``, ``--speed``, ``--dense-grads``,
+``--arch``,
 ``--reduced``, ``--seq-len``, and the elastic-membership, fault and checkpoint flags
 ``--elastic-schedule``, ``--faults``, ``--min-replicas``,
 ``--max-replicas``, ``--timeout-factor``, ``--checkpoint-dir``,
@@ -13,14 +14,19 @@ supports: ``--engine``, ``--overlap``, ``--speed``, ``--dense-grads``, ``--arch`
 included), plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain versions). ``--speed measured`` plans on relative speeds measured
 from the real mega-batch times (``MeasuredSpeedModel``) instead of the
-simulated factors. The trainer logs one more line, ``init``, with the
-seconds the initial weights took.
+simulated factors. ``--placement sharded`` splits the replicas over a
+replica mesh (``launch.mesh.make_replica_mesh``): every visible card, or
+with ``--device cpu`` a size-1 CPU mesh; under an elastic schedule the
+trainer draws a mesh for each population from those devices. The trainer
+logs one more line, ``init``, with the seconds the initial weights took.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
       --algorithm adaptive --replicas 4 --megabatches 20
   PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
       --algorithm adaptive --speed measured --megabatches 20
+  PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
+      --algorithm adaptive --placement sharded --megabatches 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
       --reduced --algorithm adaptive --megabatches 5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
@@ -37,16 +43,19 @@ import argparse
 import json
 import os
 
+import torch
+
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.configs.archs import ARCHS
 from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import algorithms
 from repro_torch.core.fleet import FleetController, parse_fault_spec
 from repro_torch.core.heterogeneity import MeasuredSpeedModel, SpeedModel
-from repro_torch.core.trainer import ENGINES, ElasticTrainer
+from repro_torch.core.trainer import ENGINES, PLACEMENTS, ElasticTrainer
 from repro_torch.data.providers import SparseProvider, TokenProvider
 from repro_torch.data.sparse import train_test_split
 from repro_torch.data.xml_synth import make_xml_dataset
+from repro_torch.launch.mesh import make_replica_mesh
 from repro_torch.models import model as MDL
 from repro_torch.models.xml_mlp import XMLMLPConfig, make_model as make_xml_model
 from repro_torch.utils.logging import log
@@ -128,6 +137,11 @@ def parser() -> argparse.ArgumentParser:
                          " oracle, bit-identical on the CPU. Only the scan"
                          " engine pipelines; the legacy engine always runs"
                          " sequentially")
+    ap.add_argument("--placement", default="vmap", choices=list(PLACEMENTS),
+                    help="replica placement: every replica on one device"
+                         " (vmap, default) or split over a replica mesh, a"
+                         " worker thread and a stream a shard (sharded): the"
+                         " visible cards, or one CPU shard with --device cpu")
     ap.add_argument("--speed", default="simulated", choices=["simulated", "measured"],
                     help="heterogeneity source for the scheduler's virtual"
                          " clock: simulated per-replica factors (paper Fig. 1"
@@ -208,16 +222,29 @@ def main(argv=None):
         algorithm=args.algorithm,
         n_replicas=algorithms.get(args.algorithm).resolve_n_replicas(args.replicas),
         mega_batch=args.mega_batch,
+        placement=args.placement,
     )
     if args.speed == "measured":
         speed = MeasuredSpeedModel(ecfg.n_replicas)
     else:
         speed = SpeedModel(ecfg.n_replicas, max_gap=args.hetero, seed=args.seed)
+    device, mesh = args.device, None
+    if args.placement == "sharded":
+        # a bare "cuda" spans every visible card; a named device is the pool
+        dev = torch.device(args.device)
+        devices = None if dev.type == "cuda" and dev.index is None else [dev]
+        device = None if devices is None else devices[0]
+        if schedule is None:
+            # with an elastic schedule the trainer draws a mesh for each
+            # population from the same devices
+            mesh = make_replica_mesh(ecfg.n_replicas, devices)
+            log("replica mesh", devices=len(mesh),
+                replicas_per_shard=ecfg.n_replicas // len(mesh))
     trainer = ElasticTrainer(
         model=model, provider=provider, cfg=ecfg,
         base_lr=args.lr, speed=speed, seed=args.seed,
-        device=args.device, engine=args.engine, sparse_grads=not args.dense_grads,
-        overlap=args.overlap == "on",
+        device=device, engine=args.engine, sparse_grads=not args.dense_grads,
+        overlap=args.overlap == "on", mesh=mesh,
     )
     fleet = None
     if args.faults or args.timeout_factor > 0:

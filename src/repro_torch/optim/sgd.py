@@ -18,6 +18,11 @@ with the reference's semantics:
   their momentum; Nesterov steps touched slots by ``g + mu*m'``;
 * ``grad_clip`` densifies sparse leaves first (the global norm needs the
   duplicate-reduced gradient), so clipped configs pay the dense cost.
+
+The dense rule multiplies by ``momentum`` and ``weight_decay`` rounded to
+the leaf's dtype, as JAX does with a Python scalar (in bf16 ``0.9`` is
+``0.8984375``), so a bf16 step is the reference's bit for bit; the
+row-sparse rule computes in f32 in both packages.
 """
 from __future__ import annotations
 
@@ -70,14 +75,20 @@ def clip_by_global_norm(grads: dict, max_norm: float, replica_dim: bool) -> dict
     return {k: (l * scale).to(l.dtype) for k, l in grads.items()}
 
 
+def _in_dtype(c: float, dtype: torch.dtype) -> float:
+    """The Python coefficient ``c`` rounded to ``dtype`` (JAX's weak-typed
+    scalar times a leaf)."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
 def _dense_leaf_update(p, g, m, lr, cfg: SGDConfig, update_mask):
     """The dense rule: wd -> momentum -> masked step, written into p (and m)."""
     if cfg.weight_decay:
-        g = g + cfg.weight_decay * p.to(g.dtype)
+        g = g + _in_dtype(cfg.weight_decay, g.dtype) * p.to(g.dtype)
     new_m = None
     if m is not None:
-        new_m = cfg.momentum * m + g.to(m.dtype)
-        g = g + cfg.momentum * new_m if cfg.nesterov else new_m
+        new_m = _in_dtype(cfg.momentum, m.dtype) * m + g.to(m.dtype)
+        g = g + _in_dtype(cfg.momentum, new_m.dtype) * new_m if cfg.nesterov else new_m
     delta = _per_replica(lr, p.ndim) * g.float()
     if update_mask is not None:
         delta = delta * _per_replica(update_mask, p.ndim)

@@ -9,12 +9,60 @@ LM: a ``prefix`` list and ``blocks.pos{j}`` dicts) crosses that boundary
 through :func:`flatten` and :func:`unflatten`, which key each leaf by its
 dotted path (``"blocks.pos0.mixer.wq"``, ``"prefix.0.ffn.wi"``) in the
 tree's own order, so the leaves come in the same order on every call.
+
+Under the sharded placement the replica and momentum state is a
+:class:`ShardedTree`: one block of contiguous replicas a shard, on the
+shard's device. The helpers the algorithms call on the whole population
+at the barrier (:func:`tree_size`, :func:`tree_replica_slice`, and
+:func:`tree_fill_rows`, the fleet's) take either layout, so no algorithm
+tests the placement. Inside a round the cross-replica helpers take the
+replica axis's name (``core.algorithms.replica_axis_name``): ``None``
+reduces over the leading dim as it is, the sharded placement's axis
+completes the reduction over the shards (``sharding.executor``).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+
+
+class ShardedTree:
+    """A replica-stacked tree split over the shards of a replica mesh:
+    ``blocks[s]`` is shard s's dict of leaves (its rows of the replica dim,
+    in order), on its device."""
+
+    def __init__(self, blocks):
+        self.blocks = list(blocks)
+
+    def keys(self):
+        return self.blocks[0].keys()
+
+    @property
+    def rows_per_block(self) -> int:
+        return next(iter(self.blocks[0].values())).shape[0]
+
+    def gather(self, device) -> dict:
+        """The whole (R, ...) tree on ``device``, as new tensors."""
+        return {k: torch.cat([b[k].to(device) for b in self.blocks]) for k in self.keys()}
+
+
+def _axis(name):
+    from repro_torch.sharding.executor import bound_axis
+
+    return bound_axis(name)
+
+
+def replica_all_sum(x, axis: Optional[str] = None):
+    """``x`` summed over every shard of the replica axis ``axis``; the
+    identity when ``axis`` is None (every replica in this program)."""
+    return x if axis is None else _axis(axis).all_sum(x)
+
+
+def replica_all_max(x, axis: Optional[str] = None):
+    """The maximum of ``x`` over the shards of ``axis`` (the live gate of
+    a round: whether any replica anywhere is unmasked)."""
+    return x if axis is None else _axis(axis).all_max(x)
 
 
 def tree_map(fn: Callable, *trees: dict) -> dict:
@@ -58,8 +106,10 @@ def unflatten(flat: dict):
     return lists(root)
 
 
-def tree_size(a: dict) -> int:
-    """Total number of scalar parameters in the tree."""
+def tree_size(a) -> int:
+    """Total number of scalar parameters in the tree (either layout)."""
+    if isinstance(a, ShardedTree):
+        return sum(tree_size(b) for b in a.blocks)
     return sum(l.numel() for l in a.values())
 
 
@@ -76,12 +126,41 @@ def tree_broadcast_replicas(a: dict, n: int) -> dict:
     return tree_map(lambda l: l.unsqueeze(0).repeat((n,) + (1,) * l.ndim), a)
 
 
-def tree_replica_mean_keepdims(a: dict) -> dict:
+def tree_replica_mean_keepdims(a: dict, axis: Optional[str] = None) -> dict:
     """f32 mean over the replica dim, kept as a dim of size 1, leafwise:
-    the cross-replica averaging primitive of the sync/crossbow family."""
-    return tree_map(lambda l: l.float().mean(dim=0, keepdim=True), a)
+    the cross-replica averaging primitive of the sync/crossbow family. With
+    ``axis``, each shard's mean is averaged over the shards (exact: every
+    shard holds as many replicas)."""
+    def leaf(l):
+        m = l.float().mean(dim=0, keepdim=True)
+        if axis is not None:
+            ax = _axis(axis)
+            m = ax.all_sum(m) / ax.size
+        return m
+
+    return tree_map(leaf, a)
 
 
-def tree_replica_slice(a: dict, i: int) -> dict:
-    """Replica i of every leaf, as a copy: rounds update replicas in place."""
+def tree_replica_slice(a, i: int) -> dict:
+    """Replica i of every leaf, as a copy on its shard's device (either
+    layout): rounds update replicas in place."""
+    if isinstance(a, ShardedTree):
+        a, i = a.blocks[i // a.rows_per_block], i % a.rows_per_block
     return tree_map(lambda l: l[i].clone(), a)
+
+
+def tree_fill_rows(a, rows, value: float):
+    """A copy of the replica tree (either layout) with the given replicas'
+    every value set to ``value``."""
+    if isinstance(a, ShardedTree):
+        n = a.rows_per_block
+        return ShardedTree([
+            tree_fill_rows(b, [r - s * n for r in rows if s * n <= r < (s + 1) * n], value)
+            for s, b in enumerate(a.blocks)
+        ])
+
+    def fill(l):
+        index = torch.tensor(list(rows), dtype=torch.long, device=l.device)
+        return l.index_fill(0, index, value)
+
+    return tree_map(fill, a)

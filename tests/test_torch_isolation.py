@@ -1,9 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
 checkpoint store, the fleet controller, the overlap pipeline's staging
-modules, the measured speed model and libSVM I/O among them) loads
-neither JAX nor any module of the reference package, builds no kernel,
-and the trainer refuses to fall back to the CPU when no card is
-present."""
+modules, the measured speed model, libSVM I/O and the sharded placement's
+mesh rules and executor among them) loads neither JAX nor any module of
+the reference package, builds no kernel, and the trainer refuses to fall
+back to the CPU when no card is present, under either placement."""
 from __future__ import annotations
 
 import os
@@ -28,7 +28,7 @@ from repro_torch.kernels import _build
 print(len(names))
 print(",".join(bad))
 print(",".join(names))
-print(_build.library.cache_info().currsize)
+print(int(_build.loaded()))
 """
 
 # the elastic-membership modules, each imported by the walk above
@@ -42,6 +42,10 @@ OVERLAP_MODULES = ("repro_torch.data.batcher", "repro_torch.data.providers",
 HOST_MODULES = ("repro_torch.core.heterogeneity", "repro_torch.data.libsvm",
                 "repro_torch.optim.schedules", "repro_torch.optim.sgd",
                 "repro_torch.configs.llama3_2_1b", "repro_torch.configs.seamless_m4t_large_v2")
+# the sharded placement's modules, likewise
+SHARDED_MODULES = ("repro_torch.sharding.rules", "repro_torch.sharding.executor",
+                   "repro_torch.launch.mesh", "repro_torch.utils.tree",
+                   "repro_torch.core.algorithms.base")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -52,7 +56,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     ).stdout.splitlines()
     n_modules, bad, names, n_loaded = int(out[0]), out[1], out[2].split(","), int(out[3])
     assert n_modules >= 25, n_modules   # the walk really saw the package
-    for module in ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES:
+    for module in ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES + SHARDED_MODULES:
         assert module in names, module
     assert bad == "", f"the port imported {bad}"
     assert n_loaded == 0                # nothing was built or loaded
@@ -79,11 +83,12 @@ def test_serve_launcher_without_device_needs_cuda(monkeypatch):
         serve.main(["--arch", "llama3.2-1b", "--reduced", "--gen", "1", "--context", "2"])
 
 
-@pytest.mark.parametrize("module", ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES)
+@pytest.mark.parametrize("module",
+                         ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES + SHARDED_MODULES)
 def test_elastic_module_alone_loads_no_jax_and_no_reference(module):
-    """Each elastic-membership, staging and host module imported on its
-    own, in a fresh interpreter: nothing of JAX or of the reference comes
-    in with it."""
+    """Each elastic-membership, staging, host and sharded-placement module
+    imported on its own, in a fresh interpreter: nothing of JAX or of the
+    reference comes in with it."""
     probe = (f"import sys, {module}\n"
              "print(','.join(sorted(m for m in sys.modules if m == 'jax' or m == 'repro'"
              " or m.startswith(('jax.', 'jaxlib', 'repro.')))))")
@@ -137,3 +142,26 @@ def test_lm_train_launcher_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "tinyllama-1.1b", "--reduced", "--megabatches", "1"])
+
+
+@pytest.mark.parametrize("schedule", [[], ["--elastic-schedule", "0:2,1:4"]])
+def test_train_launcher_sharded_placement_without_device_needs_cuda(monkeypatch, schedule):
+    """``--placement sharded`` spans the visible cards, or raises: the
+    replica mesh never falls back to the CPU unless ``--device cpu``."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--workload", "xml", "--samples", "64", "--features", "256", "--avg-nnz", "16",
+                    "--classes", "8", "--megabatches", "1", "--placement", "sharded"] + schedule)
+
+
+def test_sharded_trainer_without_mesh_needs_cuda(monkeypatch):
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.core.trainer import ElasticTrainer
+    from repro_torch.models.xml_mlp import XMLMLPConfig, make_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = make_model(XMLMLPConfig(n_features=16, n_classes=4, hidden=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticTrainer(model, provider=None, cfg=ElasticConfig(placement="sharded"))

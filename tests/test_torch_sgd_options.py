@@ -143,3 +143,33 @@ def test_trainer_run_with_option_matches_reference(case):
     p_state, _, _ = E.run_port("adaptive", n_mb=4, schedule=None, faults=None,
                                trainer=(plain, ptest))
     assert not torch.allclose(p_state.global_model["w1"], port_run[0].global_model["w1"])
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_bf16_dense_rule_matches_reference_bitwise(nesterov):
+    """bf16 leaves on the dense rule with momentum 0.9 and weight decay,
+    per-replica learning rates and one frozen replica, three steps: the
+    coefficients round to bf16 before they multiply (``0.9`` is
+    ``0.8984375`` there, as JAX rounds a Python scalar), so every parameter
+    and momentum value equals the reference's exactly."""
+    params, _, _, dense, db, lr, mask = _case(seed=7 + nesterov)
+    kw = dict(momentum=0.9, weight_decay=0.05, nesterov=nesterov)
+    bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    tp = {k: bf16(v) for k, v in params.items()}
+    jp = {k: jnp.asarray(v, jnp.bfloat16) for k, v in params.items()}
+    tm, jm = init_momentum(tp, SGDConfig(**kw)), jax_init_momentum(jp, JSGDConfig(**kw))
+    grads = {"w1": dense, "b": db}
+    for step in range(3):
+        g = {k: v * (1.0 + step) for k, v in grads.items()}
+        tp, tm = sgd_update(tp, {k: bf16(v) for k, v in g.items()}, torch.tensor(lr),
+                            SGDConfig(**kw), momentum_state=tm,
+                            update_mask=torch.from_numpy(mask))
+        jp, jm = jax_sgd_update(jp, {k: jnp.asarray(v, jnp.bfloat16) for k, v in g.items()},
+                                jnp.asarray(lr), JSGDConfig(**kw), momentum_state=jm,
+                                update_mask=jnp.asarray(mask), replica_dim=True)
+    for tree, jtree in ((tp, jp), (tm, jm)):
+        for k in params:
+            assert jtree[k].dtype == jnp.bfloat16 and tree[k].dtype == torch.bfloat16
+            np.testing.assert_array_equal(tree[k].float().numpy(),
+                                          np.asarray(jtree[k], np.float32), err_msg=k)
+    assert not np.array_equal(tp["w1"].float().numpy(), params["w1"])

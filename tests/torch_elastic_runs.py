@@ -66,16 +66,19 @@ def init_np() -> dict:
     return {k: np.asarray(v) for k, v in jref.init_params(cfg, jax.random.PRNGKey(0)).items()}
 
 
-def _cfg(cls, algo, n_replicas):
+def _cfg(cls, algo, n_replicas, placement="vmap"):
     R = jalgorithms.get(algo).resolve_n_replicas(n_replicas)
-    return cls.from_bmax(B_MAX, algorithm=algo, n_replicas=R, mega_batch=MEGA)
+    return cls.from_bmax(B_MAX, algorithm=algo, n_replicas=R, mega_batch=MEGA,
+                         placement=placement)
 
 
 def port_trainer(algo, engine="scan", sparse=True, n_replicas=R0, device="cpu", momentum=0.0,
-                 sgd=None, **trainer_kw):
+                 sgd=None, mesh=None, **trainer_kw):
     """(trainer, test batches) of the port; ``momentum`` > 0 keeps SGD
-    momentum buffers, ``sgd`` (an ``SGDConfig``) replaces that config, and
-    ``trainer_kw`` go to the trainer (a speed model, ``keep_global_copies``)."""
+    momentum buffers, ``sgd`` (an ``SGDConfig``) replaces that config,
+    ``mesh`` (CPU devices) runs the sharded placement over it in place of
+    ``device``, and ``trainer_kw`` go to the trainer (a speed model,
+    ``keep_global_copies``)."""
     ds = make_xml_dataset(**DATA)
     train, test = train_test_split(ds, 0.2, seed=0)
     prov = SparseProvider.make(train, seed=0)
@@ -85,21 +88,27 @@ def port_trainer(algo, engine="scan", sparse=True, n_replicas=R0, device="cpu", 
         init=lambda generator: port.params_from_jax(p0, "cpu"),
         loss_fn=base.loss_fn, sparse_grad_fn=base.sparse_grad_fn, config=base.config,
     )
-    tr = ElasticTrainer(model, prov, _cfg(ElasticConfig, algo, n_replicas),
+    if mesh is not None:
+        trainer_kw.update(mesh=mesh)
+        device = None
+    placement = "vmap" if mesh is None else "sharded"
+    tr = ElasticTrainer(model, prov, _cfg(ElasticConfig, algo, n_replicas, placement),
                         sgd=sgd or SGDConfig(momentum=momentum), base_lr=LR, seed=0,
                         device=device, engine=engine, sparse_grads=sparse, **trainer_kw)
     return tr, prov.test_batches(test, B_MAX)
 
 
 def ref_trainer(algo, engine="scan", sparse=True, n_replicas=R0, momentum=0.0, sgd=None,
-                **trainer_kw):
+                placement="vmap", **trainer_kw):
     """(trainer, test batches) of the reference; the arguments as
-    ``port_trainer``'s, ``sgd`` a reference ``SGDConfig``."""
+    ``port_trainer``'s, ``sgd`` a reference ``SGDConfig``, ``placement``
+    the reference's (its sharded placement on this process's one CPU
+    device is a one-shard mesh)."""
     ds = jax_make_dataset(**DATA)
     train, test = jax_split(ds, 0.2, seed=0)
     prov = JProvider.make(train, seed=0)
     model = jref.make_model(jref.XMLMLPConfig(n_features=NF, n_classes=NC, hidden=H))
-    tr = JTrainer(model, prov, _cfg(JElasticConfig, algo, n_replicas),
+    tr = JTrainer(model, prov, _cfg(JElasticConfig, algo, n_replicas, placement),
                   sgd=sgd or JSGDConfig(momentum=momentum), base_lr=LR, seed=0, engine=engine,
                   sparse_grads=sparse, **trainer_kw)
     return tr, prov.test_batches(test, B_MAX)

@@ -94,7 +94,9 @@ def _elastic(cls, algo):
     return cls.from_bmax(B_MAX, algorithm=algo, n_replicas=R, mega_batch=MEGA)
 
 
-def run_port(algo, arch, engine="scan", dtype="float32"):
+def run_port(algo, arch, engine="scan", dtype="float32", mesh=None):
+    """A port run; ``mesh`` (CPU devices) runs the sharded placement over
+    it."""
     _, tcfg = configs(arch, dtype)
     p0 = init_np(arch, dtype)
     model = TrainableModel(
@@ -103,8 +105,11 @@ def run_port(algo, arch, engine="scan", dtype="float32"):
     )
     prov = TokenProvider.make(tcfg.vocab_size, SEQ, seed=0)
     test = prov.test_batches(2, B_MAX)
-    tr = ElasticTrainer(model, prov, _elastic(ElasticConfig, algo), base_lr=LR, seed=0,
-                        device="cpu", engine=engine)
+    cfg = _elastic(ElasticConfig, algo)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, placement="sharded")
+    tr = ElasticTrainer(model, prov, cfg, base_lr=LR, seed=0,
+                        device=None if mesh is not None else "cpu", engine=engine, mesh=mesh)
     return tr.run(N_MB, test_batches=test)
 
 
