@@ -177,14 +177,41 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    decisions and fleet log identical, the model within phase 10's limit of
    its movement since the restore. (e) Dense gradients at phase 4's width
    (``spmm_grad_w`` on every shard), card against four CPU shards.
+14. multiprocess — multi-process training (``launch.multihost``): fleets
+   of child processes (fresh interpreters of this script, or the port's
+   spawner ``repro_torch.launch.multihost_launch`` driving the launcher),
+   their exchange dirs on /dev/shm where it has room. (a) Host span (the
+   file exchange and heartbeat leases), two processes of two shards each on
+   the one card (``("cuda:0",) * 2`` a process), phase 5's width and data,
+   Adaptive SGD, the pipeline on, 4 mega-batches, against one process of
+   four shards from the same seed: host decisions identical, losses within
+   1e-5, the model within phase 13's limit of its movement; each process's
+   launches (counted in the child: spmm by both shards each round and each
+   evaluation, the no-momentum weighted_merge by both shards a leaf and
+   barrier), warm mega-batch, the exchange's seconds and bytes per barrier
+   and share of the mega-batch, peak memory, and one more mega-batch under
+   the profiler (this process's busy share). (b) The heartbeat drill
+   through the spawner at phase 4's width: process 1 SIGKILLed once its
+   lease reads mega-batch 2; the survivor evicts it (``action=evict``,
+   ``process=1``, crash), finishes 8 mega-batches at R = 2 with finite
+   losses and exits 0, the spawner reporting the kill as expected. (c) The
+   device span (``torch.distributed``, gloo: two ranks share the card) of
+   ``sync`` (in-round collectives across the processes) and ``adaptive``
+   at phase 4's width against one process of four shards: decisions
+   identical, losses within 1e-5. (d) Dense gradients under a host span at
+   phase 4's width, a card fleet against a CPU fleet: within 1e-5. Where
+   the machine shows two or more cards, (a) and (c) run again with a card
+   of its own a process (NCCL for (c)); ``--only-multiprocess`` runs this
+   phase alone after the build.
 
 Then one JSON line with every kernel's numbers (weighted_merge's from
 phase 3's f32 w2 leaf, with phase 9's full-width barrier under
 ``lm_barrier``, per barrier, and its launches on every path; spmm's and
 spmm_grad_w's launches on theirs, under ``launches_by_path``; phase 11's and
 12's runs among them, with weighted_merge's no-momentum launches of phase
-12 (b, c) and 13 under ``no_momentum_launches_by_path``; phase 13's paths are
-``xml_sharded*``), and as
+12 (b, c), 13 and 14 under ``no_momentum_launches_by_path``; phase 13's paths are
+``xml_sharded*``, phase 14's ``xml_multiprocess*``, each fleet's launches
+summed over its processes), and as
 the last line
 ``{"ok": true, "device": {...}}``. The data are synthetic, drawn from
 ``SEED``; the weights are random.
@@ -201,6 +228,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1757,7 +1785,435 @@ def sharded_phase(reset_counts, read_counts, full_model, full_provider, test_bat
     return launches
 
 
-def main() -> int:
+# phase 14's settings: (a) phase 5's width, 4 mega-batches; (b) the drill
+# at phase 4's width, 8 mega-batches, process 1 killed once its lease
+# reports mega-batch 2; (c) and (d) phase 4's width, 3 mega-batches
+MP_FULL_MB, MP_DRILL_MB, MP_SMALL_MB = 4, 8, 3
+MP_TOL = 1e-5                   # losses (and (d)'s model), relative
+MP_CHILD_TIMEOUT = 480          # seconds a fleet may take, children included
+MP_SHM_NEED = 10e9              # bytes the full-width exchange files may hold
+# the merge partial at full width: w1 + b1 + w2 + b2 in f32, one model
+MP_PARTIAL_BYTES = 415_352_876
+
+
+def xml_inputs(width: str, dev) -> dict:
+    """The XML model, data and settings of phase 5 (``full``: Amazon-670K
+    width, the 8,192-sample stand-in, weights drawn on the card) or phase 4
+    (``small``), built the way those phases build them, so a fleet's child
+    and the parent start from the same weights and data."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.data.providers import SparseProvider
+    from repro_torch.data.sparse import SparseDataset, train_test_split
+    from repro_torch.data.xml_synth import AMAZON_670K, make_xml_dataset
+    from repro_torch.models.protocol import TrainableModel
+    from repro_torch.models.xml_mlp import XMLMLPConfig, init_params, make_model
+
+    if width == "full":
+        NF, NC = AMAZON_670K["n_features"], AMAZON_670K["n_classes"]
+        cfg = XMLMLPConfig(n_features=NF, n_classes=NC, hidden=128)
+        ds = SparseDataset(**amazon_like_dataset(8192, NF, NC, np.random.default_rng(SEED)))
+        train, test = train_test_split(ds, test_frac=0.25, seed=SEED)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        b_max, mega_batch, lr = 256, 20, 0.05
+        test_batches = SparseProvider.make(train, seed=SEED).test_batches(test, b_max,
+                                                                         max_samples=2048)
+    else:
+        cfg = XMLMLPConfig(n_features=512, n_classes=128, hidden=32)
+        ds = make_xml_dataset(n_samples=1024, n_features=512, n_classes=128, avg_nnz=16,
+                              seed=SEED)
+        train, test = train_test_split(ds, 0.2, seed=SEED)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED))
+        b_max, mega_batch, lr = 32, 10, 0.5
+        test_batches = SparseProvider.make(train, seed=SEED).test_batches(test, b_max)
+    base = make_model(cfg)
+
+    def model():
+        return TrainableModel(init=lambda generator: {k: v.clone() for k, v in params.items()},
+                              loss_fn=base.loss_fn, sparse_grad_fn=base.sparse_grad_fn,
+                              config=cfg)
+
+    return dict(model=model, provider=lambda: SparseProvider.make(train, seed=SEED),
+                test_batches=test_batches, params=params, b_max=b_max,
+                mega_batch=mega_batch, lr=lr)
+
+
+def mp_counters() -> dict:
+    """The launch counters of the XML path's kernels (each wrapper's own)."""
+    from repro_torch.kernels.spmm.ops import spmm_cuda, spmm_grad_w_cuda, sort_rows_cuda
+    from repro_torch.kernels.weighted_merge.ops import merge_cuda
+
+    return {"spmm": spmm_cuda, "spmm_grad_w": spmm_grad_w_cuda, "sort_rows": sort_rows_cuda,
+            "weighted_merge": merge_cuda}
+
+
+def phase14_child(spec: dict) -> int:
+    """One process of a phase-14 fleet (the parent starts it as a fresh
+    interpreter): joins the fleet, trains its block of the replicas through
+    ``ElasticTrainer.run`` and prints one JSON line: its records, its
+    kernels' launches (read here), warm mega-batch seconds, peak memory and
+    the exchange's seconds and bytes by tag."""
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.core.trainer import ElasticTrainer
+    from repro_torch.launch.multihost import MultihostSpec, bootstrap
+
+    devices = tuple(spec["devices"])
+    on_card = devices[0].startswith("cuda")
+    if on_card and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    mh = bootstrap(MultihostSpec(spec["n"], spec["pid"], spec["fleet_dir"],
+                                 spanning=spec["spanning"], local_devices=devices),
+                   device=devices[0])
+    inputs = xml_inputs(spec["width"], devices[0] if on_card else "cpu")
+    cfg = ElasticConfig.from_bmax(inputs["b_max"], algorithm=spec["algo"], n_replicas=4,
+                                  mega_batch=inputs["mega_batch"], placement="sharded")
+    tr = ElasticTrainer(inputs["model"](), inputs["provider"](), cfg, base_lr=inputs["lr"],
+                        seed=SEED, multihost=mh, sparse_grads=not spec["dense"])
+    counters = mp_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    counters["weighted_merge"].no_momentum_launches = 0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    state, mlog = tr.run(spec["n_mb"], test_batches=inputs["test_batches"])
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["weighted_merge_no_momentum"] = counters["weighted_merge"].no_momentum_launches
+    stats = json.loads(json.dumps(mh.stats))   # the run's exchanges, before the profiled one
+    if spec.get("save_model"):
+        torch.save({k: v.cpu() for k, v in state.global_model.items()},
+                   Path(spec["fleet_dir"]) / f"model-p{spec['pid']}.pt")
+    busy = None
+    if spec.get("profile"):
+        # one more mega-batch under the profiler (every process runs it: the
+        # exchanges keep the processes in lockstep): this process's kernels'
+        # busy union over the mega-batch's wall
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = tr.run_megabatch(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = {"wall": wall, "busy": device_busy_s(prof)[0]}
+    walls = [b["wall_clock"] - a["wall_clock"] for a, b in zip(mlog.records, mlog.records[1:])]
+    print(json.dumps({
+        "child": spec["pid"], "spanning": mh.spanning, "backend": mh.backend,
+        "mesh": [str(d) for d in tr.mesh], "records": mlog.records, "launches": launches,
+        "walls": walls, "first_wall": mlog.records[0]["wall_clock"],
+        "peak": torch.cuda.max_memory_allocated() if on_card else None,
+        "stats": stats, "profiled": busy}), flush=True)
+    tr.close()
+    mh.shutdown()
+    return 0
+
+
+def fleet_root() -> tuple[str, str]:
+    """A fresh directory for a fleet's exchange files, and what it is:
+    on /dev/shm (memory) when it exists with room for the full-width
+    exchange, else in the temporary directory."""
+    import shutil
+    import tempfile
+
+    shm = Path("/dev/shm")
+    if shm.is_dir():
+        free = shutil.disk_usage(shm).free
+        if free >= MP_SHM_NEED:
+            d = tempfile.mkdtemp(prefix="chip-smoke-fleet-", dir=shm)
+            return d, f"{d} on /dev/shm ({free / 1e9:.1f} GB free)"
+        why = f"/dev/shm has {free / 1e9:.2f} GB free, under {MP_SHM_NEED / 1e9:.0f} GB"
+    else:
+        why = "no /dev/shm"
+    d = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    return d, f"{d} in the temporary directory ({why})"
+
+
+def run_fleet(label: str, fleet_dir: str, n_mb: int, width: str, algo: str,
+              devices: list, spanning: str = "host", dense: bool = False,
+              save_model: bool = False, profile: bool = False,
+              env: Optional[list] = None) -> list:
+    """Start one child process per entry of ``devices`` (each a process's
+    local devices), wait for all, and return their JSON lines in process
+    order. Any child failing fails the phase; every child is ended."""
+    os.makedirs(fleet_dir, exist_ok=True)
+    procs, logs = [], []
+    try:
+        for pid, local in enumerate(devices):
+            spec = dict(pid=pid, n=len(devices), fleet_dir=fleet_dir, spanning=spanning,
+                        devices=list(local), width=width, algo=algo, n_mb=n_mb, dense=dense,
+                        save_model=save_model and pid == 0, profile=profile)
+            child_env = dict(os.environ, **(env[pid] if env else {}))
+            log_path = Path(fleet_dir) / f"child{pid}.log"
+            logs.append(log_path)
+            with open(log_path, "w") as log_f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-u", str(ROOT / "chip_smoke.py"), "--phase14-child",
+                     json.dumps(spec)], stdout=subprocess.PIPE, stderr=log_f, text=True,
+                    env=child_env))
+        deadline = time.monotonic() + MP_CHILD_TIMEOUT
+        outs = []
+        for pid, p in enumerate(procs):
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            lines = [ln for ln in out.splitlines() if ln.startswith('{"child"')]
+            if p.returncode != 0 or not lines:
+                tail = "".join(open(logs[pid]).readlines()[-30:])
+                raise RuntimeError(f"multiprocess {label}: process {pid} exited "
+                                   f"{p.returncode}:\n{tail}")
+            outs.append(json.loads(lines[-1]))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def fleet_launches(outs: list) -> dict:
+    """The fleet's launches of each kernel, summed over its processes."""
+    total: dict = {}
+    for o in outs:
+        for k, v in o["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def expect_fleet(label: str, outs: list, want) -> None:
+    """Every process's launches against ``want(records)``."""
+    for o in outs:
+        w = want(o["records"])
+        print(f"multiprocess {label} process {o['child']} launches: {o['launches']} "
+              f"(expected {w})")
+        if any(o["launches"][k] != v for k, v in w.items()):
+            raise RuntimeError(f"multiprocess {label}: process {o['child']} launches "
+                               f"{o['launches']} != expected {w}")
+
+
+def check_fleet(label: str, outs: list, want_recs: list, tol: float = MP_TOL) -> float:
+    """Every process's host decisions identical to ``want_recs``, losses
+    within ``tol``; returns the largest loss error."""
+    err = 0.0
+    for o in outs:
+        check_host_decisions(f"multiprocess {label} process {o['child']}", o["records"],
+                             want_recs)
+        err = max(err, loss_err(o["records"], want_recs))
+    if err > tol:
+        raise RuntimeError(f"multiprocess {label}: losses {err:.3g} from the single run "
+                           f"(tol {tol})")
+    return err
+
+
+def multiprocess_phase(card: str, four_cards: bool) -> dict:
+    """Phase 14: multi-process training (module doc). Returns each fleet's
+    launches by path."""
+    import shutil
+
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.core.trainer import ElasticTrainer
+
+    root, where = fleet_root()
+    print(f"multiprocess fleet dirs under {where}")
+    launches = {}
+    leaves = 4   # the XML model's w1, b1, w2, b2
+
+    def single(width, algo, n_mb, **kw):
+        """The single-process sharded run of one seed: four shards on the
+        card (CARD4); records, model, launches."""
+        inputs = xml_inputs(width, "cuda")
+        cfg = ElasticConfig.from_bmax(inputs["b_max"], algorithm=algo, n_replicas=4,
+                                      mega_batch=inputs["mega_batch"], placement="sharded")
+        tr = ElasticTrainer(inputs["model"](), inputs["provider"](), cfg,
+                            base_lr=inputs["lr"], seed=SEED, mesh=CARD4, **kw)
+        state, mlog = tr.run(n_mb, test_batches=inputs["test_batches"])
+        model = {k: v.detach().cpu().clone() for k, v in state.global_model.items()}
+        tr.close()
+        del tr, state
+        torch.cuda.empty_cache()
+        return mlog.records, model, inputs
+
+    def fleet_dir(name):
+        return os.path.join(root, name)
+
+    def per_process(n_eval):
+        """The launches each process needs, from its records: its two
+        shards launch spmm each round and, on the dense path, spmm_grad_w
+        and the sort; each shard merges its replicas through the
+        no-momentum weighted_merge once a leaf a barrier (adaptive; sync
+        merges nothing); every process evaluates."""
+        def want(recs, algo, dense=False):
+            n_rounds = sum(r["n_rounds"] for r in recs)
+            merges = 2 * leaves * len(recs) if algo == "adaptive" else 0
+            return {"spmm": 2 * n_rounds + len(recs) * n_eval,
+                    "spmm_grad_w": 2 * n_rounds if dense else 0,
+                    "sort_rows": 2 * n_rounds if dense else 0,
+                    "weighted_merge": merges, "weighted_merge_no_momentum": merges}
+        return want
+
+    try:
+        # ---- (a) host span, two processes on the card, full width ----
+        t0 = time.perf_counter()
+        recs, model, inputs = single("full", "adaptive", MP_FULL_MB)
+        single_s = time.perf_counter() - t0
+        n_eval = len(inputs["test_batches"])
+        init = {k: v.cpu() for k, v in inputs["params"].items()}
+        del inputs
+        t0 = time.perf_counter()
+        outs = run_fleet("(a)", fleet_dir("a"), MP_FULL_MB, "full", "adaptive",
+                         [("cuda:0", "cuda:0")] * 2, save_model=True, profile=True)
+        fleet_s = time.perf_counter() - t0
+        want = per_process(n_eval)
+        expect_fleet("(a)", outs, lambda r: want(r, "adaptive"))
+        l_err = check_fleet("(a)", outs, recs)
+        span_model = torch.load(Path(fleet_dir("a")) / "model-p0.pt")
+        moved = moved_err(span_model, model, init)
+        print(f"multiprocess (a) host span, 2 processes x 2 shards on one card vs one process "
+              f"x 4 shards: host decisions identical over {MP_FULL_MB} mega-batches; loss rel "
+              f"err {l_err:.3g} (tol {MP_TOL}); global model {moved:.3g} of its movement "
+              f"(tol {ELASTIC_MOVED_TOL}), max err {model_err(span_model, model):.3g}; "
+              f"fleet wall {fleet_s:.1f} s (children's start, data and weights included), "
+              f"single run {single_s:.1f} s")
+        if moved > ELASTIC_MOVED_TOL:
+            raise RuntimeError("multiprocess (a): the fleet's model left the single run's")
+        print(f"multiprocess measured on: {card}")
+        for o in outs:
+            st, walls = o["stats"], o["walls"]
+            warm = sorted(walls)[len(walls) // 2]
+            merge = st["merge"]
+            xchg_s = sum(v["seconds"] for v in st.values())
+            print(f"multiprocess (a) process {o['child']}: mesh {o['mesh']}; warm mega-batch "
+                  f"{warm:.4f} s (median of mega-batches 2-{MP_FULL_MB}: "
+                  f"{np.round(walls, 4).tolist()}; the first {o['first_wall']:.3f} s); "
+                  f"exchange per barrier {merge['seconds'] / merge['calls']:.4f} s, "
+                  f"{merge['bytes_written'] / merge['calls']:.0f} B written and "
+                  f"{merge['bytes_read'] / merge['calls']:.0f} B read (the partial is "
+                  f"{MP_PARTIAL_BYTES} B); every exchange {xchg_s:.3f} s over the run, "
+                  f"{xchg_s / (o['first_wall'] + sum(walls)):.1%} of its mega-batches; by "
+                  f"tag {json.dumps({k: round(v['seconds'], 4) for k, v in st.items()})}; "
+                  f"peak device memory {o['peak'] / 1e9:.2f} GB; one more mega-batch under "
+                  f"the profiler {o['profiled']['wall']:.4f} s, this process's kernels busy "
+                  f"{o['profiled']['busy']:.4f} s ({o['profiled']['busy'] / o['profiled']['wall']:.1%})")
+        launches["(a)"] = fleet_launches(outs)
+        shutil.rmtree(fleet_dir("a"), ignore_errors=True)
+
+        # ---- (b) the heartbeat drill through the spawner and the launcher ----
+        drill = fleet_dir("b")
+        cmd = [sys.executable, "-m", "repro_torch.launch.multihost_launch", "--procs", "2",
+               "--devices-per-proc", "2", "--spanning", "host", "--fleet-dir", drill,
+               "--kill-proc", "1", "--kill-after-mb", "2", "--timeout", str(MP_CHILD_TIMEOUT),
+               "--", "--workload", "xml", "--samples", "1024", "--features", "512",
+               "--classes", "128", "--avg-nnz", "16", "--hidden", "32", "--b-max", "32",
+               "--mega-batch", "10", "--lr", "0.5", "--replicas", "4", "--algorithm",
+               "adaptive", "--megabatches", str(MP_DRILL_MB), "--seed", str(SEED),
+               "--heartbeat-interval", "0.3", "--heartbeat-grace", "2.0"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=MP_CHILD_TIMEOUT + 60)
+        drill_s = time.perf_counter() - t0
+        survivor = (Path(drill) / "logs" / "proc0.log").read_text()
+        evict = re.search(r"\[fleet\] mb=(\d+) action=evict replica=\[2, 3\] reason=crash "
+                          r"graceful=False process=1", survivor)
+        lines = re.findall(r"\[adaptive\] mb=(\d+) loss=(\S+) acc=\S+ u=(\[[^\]]*\])",
+                           survivor)
+        print(f"multiprocess (b) drill: spawner exit {res.returncode}; "
+              + " ".join(ln for ln in res.stdout.splitlines() if ln.startswith(
+                  "[multihost-launch] proc")))
+        for ln in survivor.splitlines():
+            if "[fleet]" in ln or "dropped process" in ln or "mb=" in ln:
+                print(f"multiprocess (b) survivor: {ln}")
+        ok = (res.returncode == 0 and "proc 1: killed (expected)" in res.stdout
+              and evict is not None and len(lines) == MP_DRILL_MB
+              and all(math.isfinite(float(loss)) for _, loss, _ in lines)
+              and len(json.loads(lines[-1][2])) == 2
+              and "fleet events=1 replicas=2" in survivor)
+        print(f"multiprocess (b) drill: process 1 SIGKILLed once its lease read mega-batch "
+              f">= 2; the survivor evicted it at mega-batch "
+              f"{evict.group(1) if evict else None} and finished {len(lines)} mega-batches "
+              f"at R = 2 with finite losses in {drill_s:.1f} s")
+        if not ok:
+            raise RuntimeError(f"multiprocess (b): the drill failed:\n{res.stdout[-3000:]}\n"
+                               f"{survivor[-3000:]}")
+
+        # ---- (c) device span over gloo, two processes on the card ----
+        small_eval = None
+        for algo in ("sync", "adaptive"):
+            recs, _, inputs = single("small", algo, MP_SMALL_MB)
+            small_eval = len(inputs["test_batches"])
+            outs = run_fleet(f"(c) {algo}", fleet_dir(f"c-{algo}"), MP_SMALL_MB, "small",
+                             algo, [("cuda:0", "cuda:0")] * 2, spanning="device")
+            if any(o["backend"] != "gloo" or o["spanning"] != "device" for o in outs):
+                raise RuntimeError(f"multiprocess (c): not a gloo device span: "
+                                   f"{[(o['spanning'], o['backend']) for o in outs]}")
+            want = per_process(small_eval)
+            expect_fleet(f"(c) {algo}", outs, lambda r, a=algo: want(r, a))
+            l_err = check_fleet(f"(c) {algo}", outs, recs)
+            axis = outs[0]["stats"].get("axis", {})
+            print(f"multiprocess (c) device span {algo} over gloo, 2 processes x 2 shards on "
+                  f"one card vs one process x 4 shards: host decisions identical over "
+                  f"{MP_SMALL_MB} mega-batches; loss rel err {l_err:.3g} (tol {MP_TOL}); "
+                  f"the replica axis's all_reduce {axis.get('calls', 0)} calls, "
+                  f"{axis.get('seconds', 0.0):.3f} s in process 0")
+            launches[f"(c) {algo}"] = fleet_launches(outs)
+
+        # ---- (d) dense gradients under a host span, card vs CPU ----
+        card_outs = run_fleet("(d) card", fleet_dir("d-card"), MP_SMALL_MB, "small",
+                              "adaptive", [("cuda:0", "cuda:0")] * 2, dense=True,
+                              save_model=True)
+        cpu_outs = run_fleet("(d) cpu", fleet_dir("d-cpu"), MP_SMALL_MB, "small",
+                             "adaptive", [("cpu", "cpu")] * 2, dense=True, save_model=True)
+        want = per_process(small_eval)
+        expect_fleet("(d) card", card_outs, lambda r: want(r, "adaptive", dense=True))
+        l_err = check_fleet("(d) card vs CPU", card_outs, cpu_outs[0]["records"])
+        m_err = model_err(torch.load(Path(fleet_dir("d-card")) / "model-p0.pt"),
+                          torch.load(Path(fleet_dir("d-cpu")) / "model-p0.pt"))
+        print(f"multiprocess (d) dense gradients under a host span, card vs CPU (both 2 "
+              f"processes x 2 shards): host decisions identical; loss rel err {l_err:.3g}, "
+              f"global model err {m_err:.3g} (tol {MP_TOL})")
+        if m_err > MP_TOL:
+            raise RuntimeError("multiprocess (d): card and CPU fleets disagree")
+        launches["(d)"] = fleet_launches(card_outs)
+
+        # ---- on more cards: (a) and (c) with one card per process ----
+        if four_cards:
+            own = [{"CUDA_VISIBLE_DEVICES": str(p)} for p in range(2)]
+            recs, model, _ = single("full", "adaptive", MP_FULL_MB)
+            outs = run_fleet("(a) own cards", fleet_dir("a4"), MP_FULL_MB, "full",
+                             "adaptive", [("cuda:0", "cuda:0")] * 2, save_model=True, env=own)
+            l_err = check_fleet("(a) own cards", outs, recs)
+            moved = moved_err(torch.load(Path(fleet_dir("a4")) / "model-p0.pt"), model, init)
+            for o in outs:
+                merge, walls = o["stats"]["merge"], o["walls"]
+                print(f"multiprocess (a) own cards process {o['child']}: warm mega-batch "
+                      f"{sorted(walls)[len(walls) // 2]:.4f} s ({np.round(walls, 4).tolist()}),"
+                      f" exchange per barrier {merge['seconds'] / merge['calls']:.4f} s, "
+                      f"peak {o['peak'] / 1e9:.2f} GB")
+            print(f"multiprocess (a) own cards: decisions identical, loss rel err "
+                  f"{l_err:.3g}, model {moved:.3g} of its movement")
+            if moved > ELASTIC_MOVED_TOL:
+                raise RuntimeError("multiprocess (a) own cards: the model left the single run")
+            launches["(a) own cards"] = fleet_launches(outs)
+            shutil.rmtree(fleet_dir("a4"), ignore_errors=True)
+            for algo in ("sync", "adaptive"):
+                recs, _, _ = single("small", algo, MP_SMALL_MB)
+                outs = run_fleet(f"(c) own cards {algo}", fleet_dir(f"c4-{algo}"),
+                                 MP_SMALL_MB, "small", algo, [("cuda:0", "cuda:0")] * 2,
+                                 spanning="device", env=own)
+                if any(o["backend"] != "nccl" for o in outs):
+                    raise RuntimeError("multiprocess (c) own cards: not NCCL")
+                l_err = check_fleet(f"(c) own cards {algo}", outs, recs)
+                axis = outs[0]["stats"].get("axis", {})
+                print(f"multiprocess (c) own cards {algo} over NCCL: decisions identical, "
+                      f"loss rel err {l_err:.3g}; the axis's all_reduce "
+                      f"{axis.get('calls', 0)} calls, {axis.get('seconds', 0.0):.3f} s")
+                launches[f"(c) own cards {algo}"] = fleet_launches(outs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def main(only_multiprocess: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1813,6 +2269,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    if only_multiprocess:
+        # phase 14 alone (the multi-card runs of its fleets); the kernels'
+        # line comes from the full run
+        multiprocess = multiprocess_phase(smi, four_cards=torch.cuda.device_count() >= 2)
+        print(f"multiprocess launches: {json.dumps(multiprocess)}")
+        print(f"seconds: {time.perf_counter() - t_start:.1f}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. kernels against their plain versions --------------------------
     NF, NC, H = AMAZON_670K["n_features"], AMAZON_670K["n_classes"], 128
@@ -2689,6 +3154,16 @@ def main() -> int:
         small_test=SparseProvider.make(strain, seed=SEED).test_batches(stest, 32),
         card=smi,
     )
+    # ---- 14. multi-process training: host span, the drill, device span ------
+    torch.cuda.empty_cache()
+    multiprocess = multiprocess_phase(smi, four_cards=torch.cuda.device_count() >= 2)
+    multiprocess_paths = {
+        "(a)": "xml_multiprocess_host", "(c) sync": "xml_multiprocess_device_sync",
+        "(c) adaptive": "xml_multiprocess_device", "(d)": "xml_multiprocess_dense",
+        "(a) own cards": "xml_multiprocess_host_own_cards",
+        "(c) own cards sync": "xml_multiprocess_device_own_cards_sync",
+        "(c) own cards adaptive": "xml_multiprocess_device_own_cards"}
+
     sharded_paths = {
         "(a)": "xml_sharded_one", "(b)": "xml_sharded", "(c) measured": "xml_sharded_measured",
         "(c) replay": "xml_sharded_replay", "(d)": "xml_sharded_elastic",
@@ -2756,12 +3231,22 @@ def main() -> int:
             results["spmm_grad_w"]["launches_by_path"][path] = counts["spmm_grad_w"]
         results["weighted_merge"]["no_momentum_launches_by_path"][path] = counts[
             "weighted_merge_no_momentum"]
+    # phase 14's fleets: each process's launches, summed over the fleet
+    for label, counts in multiprocess.items():
+        path = multiprocess_paths[label]
+        for name in ("weighted_merge", "spmm"):
+            results[name]["launches_by_path"][path] = counts[name]
+        if counts["spmm_grad_w"]:
+            results["spmm_grad_w"]["launches_by_path"][path] = counts["spmm_grad_w"]
+        results["weighted_merge"]["no_momentum_launches_by_path"][path] = counts[
+            "weighted_merge_no_momentum"]
     for name in ("weighted_merge", "spmm", "spmm_grad_w"):
         launches[name] = sum(results[name]["launches_by_path"].values())
     results["spmm_grad_w"]["sort"]["launches"] = (
         dense_launches["sort_rows"] + elastic["dense"]["sort_rows"]
         + sum(counts["sort_rows"] for counts in measured.values())
-        + sum(counts["sort_rows"] for counts in sharded.values()))
+        + sum(counts["sort_rows"] for counts in sharded.values())
+        + sum(counts["sort_rows"] for counts in multiprocess.values()))
     launches.update(lm_launches)
     kernels = []
     for name, r in results.items():
@@ -2777,4 +3262,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase14-child":
+        sys.exit(phase14_child(json.loads(sys.argv[2])))
+    sys.exit(main(only_multiprocess=sys.argv[1:] == ["--only-multiprocess"]))

@@ -296,11 +296,17 @@ class CheckpointManager:
     A writer-thread failure is re-raised on the next ``maybe_save``/``wait``
     call. ``timings`` holds one record per save: the mega-batch index, the
     snapshot's bytes and synchronous seconds, and the write's seconds
-    (filled in when it has published). The multi-process single-writer
-    rule (the reference's ``publisher=``) waits for the multi-host slice.
+    (filled in when it has published).
+
+    Multi-process single-writer rule: every process builds the payload (a
+    spanning trainer's ``checkpoint_payload`` gathers every process's rows,
+    an exchange, so all processes call it on the same interval), but only
+    the manager made with ``publisher=True`` (process 0 by convention)
+    snapshots and writes.
     """
 
-    def __init__(self, directory: str, every: int = 1, retain: int = 3):
+    def __init__(self, directory: str, every: int = 1, retain: int = 3,
+                 publisher: bool = True):
         if every < 1:
             raise ValueError(f"checkpoint interval must be >= 1, got {every}")
         if retain < 1:
@@ -308,6 +314,7 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.every = int(every)
         self.retain = int(retain)
+        self.publisher = bool(publisher)
         self.timings: list[dict] = []
         self._thread: Optional[threading.Thread] = None
         # guards _error only: the one attribute both threads touch
@@ -329,11 +336,15 @@ class CheckpointManager:
         self._reraise()
         t0 = time.perf_counter()
         tree, meta = trainer.checkpoint_payload(state)
+        # recorded before the publisher gate, so repeat calls at one index
+        # dedupe alike on every process (the exchange's lockstep)
+        self._last_saved = idx
+        if not self.publisher:
+            return None
         snapshot = host_copy(tree)
         record = {"megabatch": idx, "bytes": nbytes(snapshot),
                   "snapshot_s": time.perf_counter() - t0, "write_s": None}
         self.timings.append(record)
-        self._last_saved = idx
         path = self.step_path(idx)
         self.wait()           # <= one write in flight
         self._thread = threading.Thread(

@@ -2,7 +2,8 @@
 
 Copied from ``repro/configs/base.py``: ``ModelConfig`` (the LM
 architectures; ``reduced()`` is the small smoke variant), ``ElasticConfig``
-(the paper's Adaptive SGD hyperparameters, Alg. 1 + 2) and ``InputShape``
+(the paper's Adaptive SGD hyperparameters, Alg. 1 + 2), ``RunConfig`` and
+``InputShape``
 with the assigned ``INPUT_SHAPES``. ``remat``/``remat_policy`` are read by
 LM training (``models.model._remat``).
 """
@@ -158,6 +159,17 @@ class ElasticConfig:
         """Paper's default derivation: b_min = b_max/8, beta = b_min/2."""
         b_min = max(1, b_max // 8)
         return ElasticConfig(b_max=b_max, b_min=b_min, beta=b_min / 2, **kw)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    seq_len: int = 4096
+    global_batch: int = 256
+    lr: float = 0.05
+    steps: int = 100
+    seed: int = 0
+    mode: str = "train"  # train | prefill | decode
+    warmup_megabatches: int = 0
 
 
 @dataclass(frozen=True)

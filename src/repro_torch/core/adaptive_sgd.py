@@ -127,6 +127,14 @@ def normalized_merge(
     merged = tu.tree_map(lambda l: tu.replica_all_sum(l, axis), merge_pytree(replicas, alphas))
     if not momentum:
         return merged
+    return add_global_momentum(merged, global_model, prev_global, gamma)
+
+
+def add_global_momentum(merged: dict, global_model: dict, prev_global: dict,
+                        gamma: float) -> dict:
+    """Line 12's term added to a complete weighted sum: m + gamma (w̄ - w̄_p)
+    in f32, cast once to the leaf's dtype (the sharded and multi-process
+    merges, whose sum is completed outside the kernel)."""
     return tu.tree_map(
         lambda m, g, gp: (m.float() + gamma * (g.float() - gp.float())).to(m.dtype),
         merged, global_model, prev_global,

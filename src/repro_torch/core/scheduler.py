@@ -2,7 +2,7 @@
 reformulated as *masked lockstep rounds*.
 
 Copied from ``repro/core/scheduler.py`` (``Dispatch``, ``MegaBatchPlan`` with
-``per_replica_work``, ``DynamicScheduler`` with its ``resize``).
+``per_round_sizes`` and ``per_replica_work``, ``DynamicScheduler`` with its ``resize``).
 
 Paper (§3.1): batches are dispatched one-by-one to whichever GPU finishes
 first, until a mega-batch worth of samples has been consumed; the number of
@@ -49,6 +49,13 @@ class MegaBatchPlan:
     n_rounds: int
     barrier_time: float      # virtual time when the merge can start
     samples: int
+
+    def per_round_sizes(self, n_replicas: int) -> np.ndarray:
+        """(n_rounds, R) valid-sample counts; 0 = masked round."""
+        out = np.zeros((self.n_rounds, n_replicas), np.int64)
+        for d in self.dispatches:
+            out[d.round, d.replica] = d.n_samples
+        return out
 
     def per_replica_work(self, n_replicas: int) -> np.ndarray:
         """(R,) total work units dispatched to each replica — the

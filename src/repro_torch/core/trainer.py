@@ -67,8 +67,28 @@ reference's crash-consistent checkpoint format (``checkpoint.store``).
 ``FleetController`` and a ``CheckpointManager``. Every merge among them
 goes through the ``weighted_merge`` kernel on the card; under the sharded
 placement a resize or a restore redraws the mesh from the pool and moves
-the state onto it. The reference's host-span (multi-process) branches of
-these methods are not ported.
+the state onto it.
+
+Multi-process training (``multihost=``, a ``launch.multihost.
+MultihostContext``; the sharded placement and the scan engine only): every
+process runs the identical host loop at the *global* R (the same plans,
+b/lr adaptation, speed model and fleet decisions) and holds only its
+contiguous block of replica slots (``_span_slice``) on a process-local
+mesh (the context's local devices). Host-side vectors (b, lr, alphas, the
+plan grid's columns) stay global and each shard reads its own global rows.
+The context completes what crosses processes: the merge's partial (each
+shard's no-momentum ``weighted_merge``, summed over the local shards, then
+over the processes; the alpha mass rides along and renormalizes the sum
+when a peer died mid-mega-batch; the momentum term added once, in f32), the
+mega-batch's metric sums (``allreduce_sum`` before the f32 normalization),
+the replica norms and finite masks (``allgather``) and the checkpoint's
+rows. Under a host span it does so through the file exchange and refuses
+algorithms with in-round collectives; under a device span the replica
+axis's collectives themselves cross processes (``sharding.executor``), so
+the merge and metric sums are complete when the shards return.
+Membership changes at process grain only: ``remove_replicas`` evicts whole
+process blocks (survivors renumbered first, the local width unchanged, so
+no executor is rebuilt) and ``resize`` refuses.
 
 The overlapped mega-batch pipeline (``overlap=True``, the default; the
 scan engine only, as in the reference): ``run_megabatch`` issues mega-batch
@@ -274,6 +294,9 @@ class ElasticTrainer:
                                      # sequential oracle
     mesh: Any = None                 # replica mesh for cfg.placement='sharded'
                                      # (devices; None = every visible card)
+    multihost: Any = None            # launch.multihost.MultihostContext: span
+                                     # this trainer across processes (module
+                                     # doc). None = one process.
 
     def __post_init__(self):
         if self.engine not in ENGINES:
@@ -284,9 +307,13 @@ class ElasticTrainer:
             )
         self._sharded = self.cfg.placement == "sharded"
         self._axis = algorithms.replica_axis_name(self.cfg)
+        self.algo = algorithms.get(self.cfg.algorithm)
         self._mesh_pool = None
         self._executors: dict = {}       # shard count -> ShardExecutor
         self._executor = None
+        self._span = None                # the MultihostContext, when spanning
+        if self.multihost is not None:
+            self._setup_span()
         if self._sharded:
             self._setup_mesh()
         elif self.mesh is not None:
@@ -294,7 +321,6 @@ class ElasticTrainer:
         else:
             self.device = resolve_device(self.device)
         self.init_seconds = None  # set by init_state
-        self.algo = algorithms.get(self.cfg.algorithm)
         if self.speed is None:
             self.speed = SpeedModel(self.cfg.n_replicas, seed=self.seed)
         # one window per shard for a measured speed model (sharded only)
@@ -315,17 +341,73 @@ class ElasticTrainer:
         self.staging_log = collections.deque(maxlen=1024)
 
     # ------------------------------------------------------------------
+    # process spanning
+    # ------------------------------------------------------------------
+    def _setup_span(self) -> None:
+        """Validate and adopt a multi-process context: this process runs the
+        global host loop but holds only its own block of replica slots. The
+        refusals are the reference's: the vmap placement and the legacy
+        engine have no per-shard executors to localize, the process-local
+        mesh is built here, a measured speed model would feed each process
+        other factors and fork the plans, and (host span) in-round
+        collectives cannot cross the file exchange."""
+        ctx = self.multihost
+        span = f"{ctx.spanning}-span multihost"
+        if self.cfg.placement != "sharded":
+            raise ValueError(f"{span} needs cfg.placement='sharded'")
+        if self.engine != "scan":
+            raise ValueError(f"{span} needs engine='scan'")
+        if self.mesh is not None:
+            raise ValueError(f"{span} builds its own process-local mesh; do not pass one")
+        if isinstance(self.speed, MeasuredSpeedModel):
+            raise ValueError(
+                f"{span} needs the simulated SpeedModel: every process must plan from "
+                "identical speed factors"
+            )
+        if ctx.spanning == "host" and getattr(self.algo, "round_collectives", False):
+            raise ValueError(
+                f"algorithm {self.cfg.algorithm!r} reduces across replicas inside every "
+                "round (round_collectives=True); its collectives cannot span processes on "
+                "the host-exchange path"
+            )
+        ctx.assign_slots(self.cfg.n_replicas)
+        self._span = ctx
+
+    def _mesh_width(self) -> int:
+        """The replica count the local mesh holds: this process's block
+        under a span, the global R otherwise."""
+        return self._span.local_count() if self._span is not None else self.cfg.n_replicas
+
+    def _span_slice(self) -> slice:
+        """This process's rows of any global (R, ...) array."""
+        if self._span is None:
+            return slice(None)
+        lo, hi = self._span.local_bounds()
+        return slice(lo, hi)
+
+    def process_slots(self, pid: int) -> Optional[list[int]]:
+        """Global replica slots of fleet process ``pid`` (None when not
+        spanning or unknown): the FleetController's resolution of
+        process-grain events."""
+        if self._span is None:
+            return None
+        return self._span.slots_of(pid)
+
+    # ------------------------------------------------------------------
     # the sharded placement: mesh, executors, per-shard work
     # ------------------------------------------------------------------
     def _setup_mesh(self) -> None:
         """The replica mesh and its pool (the reference's ``mesh=None``:
-        every visible card, or the given device; a given mesh must split R
-        evenly and seeds the pool), the home device (the mesh's first: the
-        globals, evaluation, checkpoints) and the executor."""
+        every visible card, or the given device, or under a span the
+        context's local devices; a given mesh must split R evenly and seeds
+        the pool), the home device (the mesh's first: the globals,
+        evaluation, checkpoints) and the executor."""
         if self.mesh is None:
             devices = None if self.device is None else [self.device]
+            if self._span is not None and self._span.local_devices:
+                devices = self._span.local_devices
             self._mesh_pool = ReplicaMeshPool(devices)
-            self.mesh = self._mesh_pool.mesh_for(self.cfg.n_replicas)
+            self.mesh = self._mesh_pool.mesh_for(self._mesh_width())
         else:
             self.mesh = mesh_devices(self.mesh)
             if self.cfg.n_replicas % len(self.mesh):
@@ -349,7 +431,12 @@ class ElasticTrainer:
         reused by every later resize back to that count."""
         n = len(self.mesh)
         if n not in self._executors:
-            self._executors[n] = ShardExecutor(self.mesh, REPLICA_AXIS)
+            # the device span's replica axis runs across the processes
+            cross = None
+            if (self._span is not None and self._span.spanning == "device"
+                    and self._span.n_processes > 1):
+                cross = self._span
+            self._executors[n] = ShardExecutor(self.mesh, REPLICA_AXIS, cross=cross)
         self._executor = self._executors[n]
 
     def close(self) -> None:
@@ -364,10 +451,18 @@ class ElasticTrainer:
         return len(self.mesh) if self._sharded else 1
 
     def _rows(self, s: int) -> slice:
-        """The replicas shard ``s`` holds (all of them under vmap)."""
+        """The rows of this process's replica trees that shard ``s`` holds
+        (all of them under vmap)."""
         if not self._sharded:
             return slice(0, self.cfg.n_replicas)
-        return replica_block(self.cfg.n_replicas, len(self.mesh), s)
+        return replica_block(self._mesh_width(), len(self.mesh), s)
+
+    def _grows(self, s: int) -> slice:
+        """Shard ``s``'s rows of the global (R,) host vectors: ``_rows``
+        offset by this process's block under a span."""
+        rows = self._rows(s)
+        lo = self._span.local_bounds()[0] if self._span is not None else 0
+        return slice(lo + rows.start, lo + rows.stop)
 
     def _shard_device(self, s: int) -> torch.device:
         return self.mesh[s] if self._sharded else self.device
@@ -448,6 +543,9 @@ class ElasticTrainer:
     def _merge(self, replicas, alphas, global_model, prev_global, gamma, broadcast=True):
         """(new global on the home device, the replicas reset to it in the
         placement's layout, or None without ``broadcast``)."""
+        if self._span is not None:
+            return self._merge_spanning(replicas, alphas, global_model, prev_global, gamma,
+                                        broadcast)
         if not self._sharded:
             if broadcast:
                 return merge_replicas(replicas, alphas, global_model, prev_global, gamma)
@@ -466,11 +564,67 @@ class ElasticTrainer:
         outs = self._shards(one, replicas)
         return outs[0][0], self._layout([o[1] for o in outs]) if broadcast else None
 
+    def _merge_spanning(self, replicas, alphas, global_model, prev_global, gamma,
+                        broadcast=True):
+        """Algorithm 2's merge across processes.
+
+        ``alphas`` is the global (R,) weight vector. Each local shard
+        computes its share of the weighted sum through ``weighted_merge``'s
+        no-momentum branch, summed over the local shards in shard order
+        (``normalized_merge``'s axis branch); under a device span that axis
+        already crosses the processes. Under a host span the exchange sums
+        the processes' partials in process order, and the contributed alpha
+        mass rides along: when a peer died mid-mega-batch its partial is
+        absent, and scaling the sum by the expected over the contributed
+        mass is exactly ``remove_replicas``' crash semantics (the dead
+        replicas' weight redistributes over the survivors). The
+        global-momentum term is added once, to the sum, in f32, as the
+        one-process path adds it."""
+        span = self._span
+        lo, hi = span.local_bounds()
+        a = np.asarray(alphas, np.float64)
+        outs = self._shards(
+            lambda s, block: asgd.normalized_merge(block, a[self._grows(s)], None, None, 0.0,
+                                                   axis=self._axis),
+            replicas)
+        merged = outs[0]
+        if span.spanning == "host":
+            payload = {"partial": _nested(merged), "mass": np.float64(a[lo:hi].sum())}
+            total, contributors = span.allreduce_sum("merge", payload)
+            flat = tu.flatten(total["partial"])
+            scale = None
+            if len(contributors) < len(span.active_processes()):
+                contributed = float(total["mass"])
+                if contributed <= 0.0:
+                    raise FloatingPointError(
+                        "every process holding nonzero merge weight died mid-mega-batch; "
+                        "nothing to merge"
+                    )
+                scale = np.float32(float(a.sum()) / contributed)
+            merged = {
+                k: torch.from_numpy(flat[k] if scale is None else (flat[k] * scale).astype(
+                    flat[k].dtype)).to(self.device, v.dtype)
+                for k, v in merged.items()
+            }
+        if not (global_model is None or prev_global is None or gamma == 0.0):
+            merged = asgd.add_global_momentum(merged, global_model, prev_global, gamma)
+        return merged, self._broadcast(merged) if broadcast else None
+
     def replica_norms(self, replicas) -> np.ndarray:
         """(R,) per-replica L2 norms on the host (feeds Alg. 2's
         perturbation condition); per shard under sharded."""
         outs = self._shards(lambda s, b: tu.tree_l2_norm_per_replica(b), replicas)
-        return np.concatenate([o.cpu().numpy() for o in outs])
+        local = np.concatenate([o.cpu().numpy() for o in outs])
+        if self._span is None:
+            return local
+        # the norms are per replica (no cross-replica sum): a gather
+        # reassembles the global vector; a dead peer's rows read 0, its
+        # merge weight is redistributed at the merge anyway
+        out = np.zeros(self.cfg.n_replicas, local.dtype)
+        for pid, arr in self._span.allgather("norms", local).items():
+            plo, phi = self._span.bounds_of(pid)
+            out[plo:phi] = arr
+        return out
 
     def apply_replicas(self, fn, replicas):
         """``fn(replicas, axis) -> (replica tree, extra)`` over the whole
@@ -546,6 +700,11 @@ class ElasticTrainer:
         R = self.cfg.n_replicas
         if new_R == R:
             return state
+        if self._span is not None:
+            raise ValueError(
+                "a spanning trainer changes membership at process grain (heartbeat-driven "
+                "fleet events); resize() is unsupported"
+            )
         if new_R < 1:
             raise ValueError(f"cannot resize to {new_R} replicas")
         self.invalidate_prefetch()
@@ -592,7 +751,7 @@ class ElasticTrainer:
         self.speed.resize(new_R)
         self.scheduler.resize(self.cfg)
         if self._sharded:
-            self.mesh = self._mesh_pool.mesh_for(new_R)
+            self.mesh = self._mesh_pool.mesh_for(self._mesh_width())
             self._install_executor()
 
     def _place_state(self, replicas, momentum, global_model, prev_global):
@@ -606,7 +765,8 @@ class ElasticTrainer:
         def split(tree):
             if tree is None or not self._sharded:
                 return put(tree)
-            return self._take_rows(tree, list(range(self.cfg.n_replicas)), self.cfg.n_replicas)
+            n = self._mesh_width()
+            return self._take_rows(tree, list(range(n)), n)
 
         return split(replicas), split(momentum), put(global_model), put(prev_global)
 
@@ -627,7 +787,8 @@ class ElasticTrainer:
         hence the zeroing). A prefetched plan is revoked first: the
         permutation moves speed factors and clocks it consumed in the old
         order. Under the sharded placement the permuted rows are copied
-        across the shards. The reference's host-span branch is not ported.
+        across the shards; a spanning trainer evicts whole process blocks
+        (``_remove_replicas_spanning``).
         """
         R = self.cfg.n_replicas
         drop = sorted({int(i) for i in indices})
@@ -638,6 +799,8 @@ class ElasticTrainer:
             raise ValueError(f"replica indices {bad} out of range for R={R}")
         if len(drop) >= R:
             raise ValueError(f"cannot remove all {R} replicas (removal of {drop})")
+        if self._span is not None:
+            return self._remove_replicas_spanning(state, drop, merge_leavers)
         self.invalidate_prefetch()
         survivors = [i for i in range(R) if i not in set(drop)]
         perm = survivors + drop
@@ -667,6 +830,66 @@ class ElasticTrainer:
             )
 
         return self.resize(state, R - len(drop))
+
+    def _remove_replicas_spanning(self, state, drop, merge_leavers):
+        """Evict whole peer processes from a spanning fleet.
+
+        The drop set must cover exact process blocks (the monitor emits
+        process-grain events, so it does); this process's replica count is
+        untouched: the same mesh and executor. Every surviving process runs
+        this identically:
+
+        * a final merge over the survivors: a dead process contributes no
+          partial, and with its alphas zeroed the exchange's mass
+          renormalization is ``merge_leavers=False``'s crash semantics (a
+          graceful leaver still exchanges, and its updates fold in);
+        * survivors-first renumbering preserves order, so every slot block
+          stays contiguous; the host-global vectors (b, lr, speed factors,
+          virtual clocks) permute and shrink as on one process.
+        """
+        span = self._span
+        R = self.cfg.n_replicas
+        victims = span.processes_for_slots(drop)
+        self.invalidate_prefetch()
+
+        alphas = np.asarray(state.b, np.float64).copy()
+        if not merge_leavers:
+            alphas[drop] = 0.0
+        if alphas.sum() <= 0:
+            alphas = np.ones(R, np.float64)
+            if not merge_leavers:
+                alphas[drop] = 0.0
+        alphas = alphas / alphas.sum()
+        merged, merged_replicas = self._merge(state.replicas, alphas, None, None, 0.0)
+
+        dropset = set(drop)
+        survivors = [i for i in range(R) if i not in dropset]
+        perm = survivors + list(drop)
+        if perm != list(range(R)):
+            self.speed.permute(perm)
+            self.scheduler.clock.permute(perm)
+        new_R = R - len(drop)
+        b_perm = np.asarray(state.b, np.float64)[perm]
+        lr_perm = np.asarray(state.lr, np.float64)[perm]
+        for pid in victims:
+            span.remove_process(pid)
+        self._adopt_width(new_R)
+        new_b, new_lr = self.algo.resize_b(self.cfg, b_perm[:new_R], lr_perm[:new_R],
+                                           self.base_lr)
+        # 'merge': everyone restarts from the merged global; 'preserve':
+        # survivors keep their own rows, which are exactly this process's.
+        # Survivors keep their momentum.
+        new_replicas = state.replicas if self.algo.resize_policy == "preserve" \
+            else merged_replicas
+        return ElasticState(
+            replicas=new_replicas,
+            global_model=merged if state.global_model is not None else None,
+            prev_global=merged if state.prev_global is not None else None,
+            momentum=state.momentum,
+            b=np.asarray(new_b, np.float64),
+            lr=np.asarray(new_lr, np.float64),
+            megabatch_idx=state.megabatch_idx,
+        )
 
     # ------------------------------------------------------------------
     # rounds
@@ -727,6 +950,8 @@ class ElasticTrainer:
             if timer is not None:
                 timer.mark_end(s, stream)
             sums = tu.replica_all_sum(torch.stack(sums), self._axis)
+            if self._span is not None and self._span.spanning == "host":
+                return replicas, momentum, sums   # the exchange completes them
             denom = sums[:, 3].clamp_min(1.0)
             stats = torch.stack(
                 [sums[:, 0] / denom, sums[:, 1] / denom, sums[:, 2], (sums[:, 3] > 0).float()],
@@ -738,10 +963,21 @@ class ElasticTrainer:
         return (self._layout([o[0] for o in outs]), self._layout([o[1] for o in outs]),
                 outs[0][2])
 
-    @staticmethod
-    def _finish_metrics(stats) -> tuple[float, float]:
+    def _finish_metrics(self, stats) -> tuple[float, float]:
         """A mega-batch's (loss, accuracy) from ``_dispatch_rounds``'s
-        stats: the one host sync of the scan engine."""
+        stats: the one host sync of the scan engine. Under a host span the
+        stats are this process's raw per-round sums: the exchange completes
+        them over the processes and the host mirrors the normalization in
+        f32 (a dead peer contributes nothing: that mega-batch's metrics
+        cover the survivors)."""
+        if self._span is not None and self._span.spanning == "host":
+            f32 = np.float32
+            total, _ = self._span.allreduce_sum("metrics", {"sums": stats.cpu().numpy()})
+            sums = np.asarray(total["sums"], f32)
+            denom = np.maximum(sums[:, 3], f32(1.0))
+            loss_r, acc_r = sums[:, 0] / denom, sums[:, 1] / denom
+            n_live = np.maximum((sums[:, 3] > 0).astype(f32).sum(dtype=f32), f32(1.0))
+            return (float(loss_r.sum(dtype=f32) / n_live), float(acc_r.sum(dtype=f32) / n_live))
         n_live = stats[:, 3].sum().clamp_min(1.0)
         loss, acc = (torch.stack([stats[:, 0].sum(), stats[:, 1].sum()]) / n_live).tolist()
         return loss, acc
@@ -755,7 +991,10 @@ class ElasticTrainer:
         lr32 = np.asarray(lr, np.float32)
         packed, masks = [], []
         for s in range(self._n_shards):
-            rows = self._rows(s)
+            # the grid and lr are global: each shard packs its own global
+            # columns (under a span, only this process's are packed and
+            # uploaded; packing is a pure gather of payloads the plan fetched)
+            rows = self._grows(s)
             sub = [row[rows] for row in grid]
             if host is None:
                 arrays, mask_np = self.provider.stack_plan(sub, b_slots)
@@ -846,12 +1085,27 @@ class ElasticTrainer:
     # non-finite guard
     # ------------------------------------------------------------------
     def _finite_rows(self, replicas) -> np.ndarray:
-        """(R,) bool on the host: replica i's leaves are all finite."""
+        """(R,) bool on the host: replica i's leaves are all finite (this
+        process's rows under a span)."""
         def one(s, block):
             parts = [torch.isfinite(l.float()).flatten(1).all(dim=1) for l in block.values()]
             return torch.stack(parts).all(dim=0)
 
         return np.concatenate([o.cpu().numpy() for o in self._shards(one, replicas)])
+
+    def _global_finite_rows(self, replicas) -> np.ndarray:
+        """(R,) bool over the global population: under a span the local
+        masks are gathered, so every process agrees on the rows to repair
+        (and issues the same repair exchanges); a dead peer's rows read
+        finite: its weight is handled by eviction, not by the guard."""
+        finite_local = self._finite_rows(replicas)
+        if self._span is None:
+            return finite_local
+        out = np.ones(self.cfg.n_replicas, bool)
+        for pid, arr in self._span.allgather("finite", finite_local).items():
+            plo, phi = self._span.bounds_of(pid)
+            out[plo:phi] = np.asarray(arr, bool)
+        return out
 
     def _repair_nonfinite(self, state, replicas, momentum, finite):
         """Re-clone non-finite replicas from a finite donor.
@@ -859,43 +1113,45 @@ class ElasticTrainer:
         The poisoned rows are zeroed first (``0 * NaN`` is still NaN), then
         overwritten with the donor: the Algorithm-2 normalized merge of the
         finite rows, weights ``b_i`` restricted to them (summed over the
-        shards under sharded). A fully diverged population restarts from the
-        last barrier global; without one the guard raises. Healed replicas
+        shards under sharded, and over the processes under a span, where
+        ``finite`` is the agreed global mask and each shard applies its own
+        rows of it). A fully diverged population restarts from the last
+        barrier global; without one the guard raises. Healed replicas
         continue with zeroed momentum.
         """
-        alphas, donors = None, None
-        if finite.any():
-            alphas = np.where(finite, np.asarray(state.b, np.float64), 0.0)
-            alphas = alphas / alphas.sum()
-        elif state.global_model is not None:
-            donors = self._replicated(state.global_model)
-        else:
+        if not finite.any() and state.global_model is None:
             raise FloatingPointError(
                 "all replicas diverged to non-finite values and algorithm "
                 f"{self.algo.name!r} keeps no global model to restart from"
             )
 
-        def one(s, block, mom):
-            rows, dev = self._rows(s), self._shard_device(s)
-            keep = torch.from_numpy(finite[rows].copy()).to(dev)
+        def keep_rows(s, l, fill):
+            keep = torch.from_numpy(finite[self._grows(s)].copy()).to(l.device)
+            return torch.where(keep.view((-1,) + (1,) * (l.ndim - 1)), l, fill)
 
-            def keep_rows(l, fill):
-                return torch.where(keep.view((-1,) + (1,) * (l.ndim - 1)), l, fill)
-
-            block = tu.tree_map(lambda l: keep_rows(l, torch.zeros_like(l)), block)
-            if donors is None:
-                donor = asgd.normalized_merge(block, alphas[rows], None, None, 0.0,
-                                              axis=self._axis)
-            else:
-                donor = donors[dev]
-            block = tu.tree_map(lambda l, g: keep_rows(l, g.to(l.dtype).expand_as(l)),
-                                block, donor)
+        def zero(s, block, mom):
+            block = tu.tree_map(lambda l: keep_rows(s, l, torch.zeros_like(l)), block)
             if mom is not None:
-                mom = tu.tree_map(lambda l: keep_rows(l, torch.zeros_like(l)), mom)
+                mom = tu.tree_map(lambda l: keep_rows(s, l, torch.zeros_like(l)), mom)
             return block, mom
 
-        outs = self._shards(one, replicas, momentum)
-        return self._layout([o[0] for o in outs]), self._layout([o[1] for o in outs])
+        outs = self._shards(zero, replicas, momentum)
+        replicas, momentum = (self._layout([o[0] for o in outs]),
+                              self._layout([o[1] for o in outs]))
+        if finite.any():
+            alphas = np.where(finite, np.asarray(state.b, np.float64), 0.0)
+            donor, _ = self._merge(replicas, alphas / alphas.sum(), None, None, 0.0,
+                                   broadcast=False)
+        else:
+            donor = state.global_model
+        donors = self._replicated(donor)
+
+        def fill(s, block):
+            d = donors[self._shard_device(s)]
+            return tu.tree_map(lambda l, g: keep_rows(s, l, g.to(l.dtype).expand_as(l)),
+                               block, d)
+
+        return self._layout(self._shards(fill, replicas)), momentum
 
     # ------------------------------------------------------------------
     # one mega-batch
@@ -956,7 +1212,7 @@ class ElasticTrainer:
         # ---- non-finite guard: heal poisoned replicas before the barrier;
         # inert while every replica is finite ----
         guard_repaired: list[int] = []
-        finite = self._finite_rows(replicas)
+        finite = self._global_finite_rows(replicas)
         if not finite.all():
             replicas, momentum = self._repair_nonfinite(state, replicas, momentum, finite)
             guard_repaired = np.flatnonzero(~finite).tolist()
@@ -1014,7 +1270,7 @@ class ElasticTrainer:
 
         # ---- non-finite guard, then the merge (the barrier) ----
         guard_repaired: list[int] = []
-        finite = self._finite_rows(replicas)
+        finite = self._global_finite_rows(replicas)
         if not finite.all():
             replicas, momentum = self._repair_nonfinite(state, replicas, momentum, finite)
             guard_repaired = np.flatnonzero(~finite).tolist()
@@ -1262,7 +1518,11 @@ class ElasticTrainer:
         EMAs are observation history, not plan cursors, and stay live).
         Under sharded the shards' blocks are gathered into whole trees on
         the home device, so the format is the same under either placement.
-        The reference's host-span branch is not ported."""
+        Under a span every process's rows are gathered into width-complete
+        trees (``_span_gather_state``), so a single-process run restores
+        it: every process builds the payload on the same interval (the
+        gather is an exchange) and only the publishing manager writes
+        (``CheckpointManager(publisher=)``)."""
         speed_sd = self.speed.state_dict()
         provider_sd = (
             self.provider.state_dict() if hasattr(self.provider, "state_dict") else None
@@ -1275,9 +1535,14 @@ class ElasticTrainer:
             clock_t = np.asarray(snap["clock_t"], np.float64)
             if snap["speed"] is not None:
                 speed_sd = snap["speed"]
+        if self._span is not None:
+            replicas_ckpt, momentum_ckpt = self._span_gather_state(state)
+        else:
+            replicas_ckpt = _nested(self._whole(state.replicas))
+            momentum_ckpt = _nested(self._whole(state.momentum))
         tree = {
-            "replicas": _nested(self._whole(state.replicas)),
-            "momentum": _nested(self._whole(state.momentum)),
+            "replicas": replicas_ckpt,
+            "momentum": momentum_ckpt,
             "global_model": _nested(state.global_model),
             "prev_global": _nested(state.prev_global),
             "b": np.asarray(state.b, np.float64),
@@ -1302,6 +1567,39 @@ class ElasticTrainer:
             metadata["provider"] = provider_sd
         return tree, metadata
 
+    def _span_gather_state(self, state: ElasticState):
+        """Width-complete ``(replicas, momentum)`` host trees under a span:
+        every live process's rows gathered and laid into global-R arrays by
+        slot block (nested, as checkpoints store them). Rows of a peer that
+        dies during this exchange take the global model (replicas) or zeros
+        (momentum), what a crash eviction would have merged away anyway."""
+        span = self._span
+        R = int(self.cfg.n_replicas)
+
+        def local(tree):
+            return None if tree is None else _nested(self._whole(tree))
+
+        gathered = span.allgather(
+            "ckpt", {"replicas": local(state.replicas), "momentum": local(state.momentum)})
+        fills = {"replicas": state.global_model, "momentum": None}
+
+        def assemble(key: str):
+            if gathered[span.process_id][key] is None:
+                return None
+            by_pid = {pid: tu.flatten(tree[key]) for pid, tree in gathered.items()}
+            out = {}
+            for k, leaf in by_pid[span.process_id].items():
+                g = np.zeros((R,) + leaf.shape[1:], leaf.dtype)
+                if fills[key] is not None:
+                    g[:] = fills[key][k].cpu().numpy()[None]
+                for pid, leaves in by_pid.items():
+                    lo, hi = span.bounds_of(pid)
+                    g[lo:hi] = leaves[k]
+                out[k] = g
+            return tu.unflatten(out)
+
+        return assemble("replicas"), assemble("momentum")
+
     def restore_checkpoint(self, path: str) -> ElasticState:
         """Rebuild the full training state from a checkpoint written by
         this trainer or by the reference's.
@@ -1312,7 +1610,9 @@ class ElasticTrainer:
         structural mismatches raise ``checkpoint.store.CheckpointError`` —
         but its replica count may differ: the checkpointed width is
         adopted (``_adopt_width``). A prefetched plan belongs to the
-        pre-restore trajectory and is revoked first.
+        pre-restore trajectory and is revoked first. Under a span the
+        checkpoint is width-complete: its width is re-split over the live
+        processes and this process keeps only its own block.
         """
         self.invalidate_prefetch()
         path = ckpt_store.resolve_checkpoint(path)
@@ -1324,6 +1624,10 @@ class ElasticTrainer:
             )
         new_R = int(meta["n_replicas"])
         if new_R != self.cfg.n_replicas:
+            if self._span is not None:
+                # re-split the checkpointed global width over the live
+                # processes before adopting it (raises if indivisible)
+                self._span.assign_slots(new_R)
             self._adopt_width(new_R)
         speed_sd = self.speed.state_dict()
         ckpt_kind = meta.get("speed_meta", {}).get("kind")
@@ -1367,15 +1671,17 @@ class ElasticTrainer:
         if "provider" in meta and hasattr(self.provider, "load_state_dict"):
             self.provider.load_state_dict(meta["provider"])
 
-        def flat(nested):
-            # the model's own leaf order (the per-replica norms sum in it)
+        def flat(nested, rows=slice(None)):
+            # the model's own leaf order (the per-replica norms sum in it);
+            # ``rows`` keeps this process's block under a span
             if nested is None:
                 return None
             leaves = tu.flatten(nested)
-            return {k: leaves[k] for k in params_like}
+            return {k: leaves[k][rows] for k in params_like}
 
+        sl = self._span_slice()
         replicas, momentum, global_model, prev_global = self._place_state(
-            flat(tree["replicas"]), flat(tree["momentum"]),
+            flat(tree["replicas"], sl), flat(tree["momentum"], sl),
             flat(tree["global_model"]), flat(tree["prev_global"]),
         )
         return ElasticState(
@@ -1452,7 +1758,7 @@ class ElasticTrainer:
             state = self.init_state()
             if verbose:
                 log("init", seconds=round(self.init_seconds, 3),
-                    params=tu.tree_size(state.replicas) // self.cfg.n_replicas)
+                    params=tu.tree_size(state.replicas) // self._mesh_width())
         mlog = MetricsLog()
         overlap_active = self.overlap and self.engine == "scan"
         pending_eval = None  # (record to backfill, collector)

@@ -1,7 +1,7 @@
 """Synthetic extreme multi-label (XML) dataset generator.
 
-Copied from ``repro/data/xml_synth.py`` (``make_xml_dataset`` and the
-paper-scale descriptors); it draws the same numpy random stream, so a seed
+Copied from ``repro/data/xml_synth.py`` (``make_xml_dataset``, the
+paper-scale descriptors and ``make_paper_like``); it draws the same numpy random stream, so a seed
 gives the reference's dataset array for array.
 
 Generation model:
@@ -86,3 +86,16 @@ def make_xml_dataset(
 # Paper-scale dataset descriptors (Table 1).
 AMAZON_670K = dict(n_features=135_909, n_classes=670_091, avg_nnz=76, avg_labels=5)
 DELICIOUS_200K = dict(n_features=782_585, n_classes=205_443, avg_nnz=302, avg_labels=75)
+
+
+def make_paper_like(which: str, scale: float = 0.01, n_samples: int = 4096, seed: int = 0):
+    """A scale-factor stand-in for Amazon-670k / Delicious-200k."""
+    spec = {"amazon-670k": AMAZON_670K, "delicious-200k": DELICIOUS_200K}[which]
+    return make_xml_dataset(
+        n_samples=n_samples,
+        n_features=max(256, int(spec["n_features"] * scale)),
+        n_classes=max(64, int(spec["n_classes"] * scale)),
+        avg_nnz=min(spec["avg_nnz"], 128),
+        avg_labels=min(spec["avg_labels"], 16),
+        seed=seed,
+    )

@@ -11,14 +11,23 @@ supports: ``--engine``, ``--overlap``, ``--placement``, ``--speed``, ``--dense-g
 ``--elastic-schedule``, ``--faults``, ``--min-replicas``,
 ``--max-replicas``, ``--timeout-factor``, ``--checkpoint-dir``,
 ``--checkpoint-every``, ``--checkpoint-retain`` and ``--restore-from``
-included), plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
-plain versions). ``--speed measured`` plans on relative speeds measured
+included, and the multi-process flags ``--multihost``,
+``--heartbeat-interval`` and ``--heartbeat-grace``), plus ``--device``
+(default ``cuda``; ``cpu`` runs the kernels' plain versions). ``--speed measured`` plans on relative speeds measured
 from the real mega-batch times (``MeasuredSpeedModel``) instead of the
 simulated factors. ``--placement sharded`` splits the replicas over a
 replica mesh (``launch.mesh.make_replica_mesh``): every visible card, or
 with ``--device cpu`` a size-1 CPU mesh; under an elastic schedule the
 trainer draws a mesh for each population from those devices. The trainer
 logs one more line, ``init``, with the seconds the initial weights took.
+
+Multi-process training: launched by ``launch.multihost_launch`` (the
+``REPRO_MH_*`` environment present and ``--multihost auto``), the process
+joins its fleet (``launch.multihost.bootstrap``), forces ``--placement
+sharded`` and trains its block of the global replicas on its local devices;
+under a host span it renews a heartbeat lease, waits for every peer's
+(``rendezvous``) and runs under a ``FleetController`` whose monitor evicts
+a peer whose lease goes stale. Only process 0 writes checkpoints.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --workload xml \
@@ -49,12 +58,13 @@ from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.configs.archs import ARCHS
 from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import algorithms
-from repro_torch.core.fleet import FleetController, parse_fault_spec
+from repro_torch.core.fleet import FleetController, HeartbeatMonitor, parse_fault_spec
 from repro_torch.core.heterogeneity import MeasuredSpeedModel, SpeedModel
 from repro_torch.core.trainer import ENGINES, PLACEMENTS, ElasticTrainer
 from repro_torch.data.providers import SparseProvider, TokenProvider
 from repro_torch.data.sparse import train_test_split
 from repro_torch.data.xml_synth import make_xml_dataset
+from repro_torch.launch import multihost as mhmod
 from repro_torch.launch.mesh import make_replica_mesh
 from repro_torch.models import model as MDL
 from repro_torch.models.xml_mlp import XMLMLPConfig, make_model as make_xml_model
@@ -142,6 +152,17 @@ def parser() -> argparse.ArgumentParser:
                          " (vmap, default) or split over a replica mesh, a"
                          " worker thread and a stream a shard (sharded): the"
                          " visible cards, or one CPU shard with --device cpu")
+    ap.add_argument("--multihost", default="auto", choices=["auto", "off"],
+                    help="multi-process fleet bootstrap: 'auto' spans processes when"
+                         " the REPRO_MH_* environment (set by"
+                         " repro_torch.launch.multihost_launch) is present; 'off'"
+                         " ignores it")
+    ap.add_argument("--heartbeat-interval", type=float, default=0.5,
+                    help="multi-process lease renewal period (seconds)")
+    ap.add_argument("--heartbeat-grace", type=float, default=3.0,
+                    help="multi-process liveness deadline: a process whose lease"
+                         " has not changed for this long is declared crashed and"
+                         " evicted")
     ap.add_argument("--speed", default="simulated", choices=["simulated", "measured"],
                     help="heterogeneity source for the scheduler's virtual"
                          " clock: simulated per-replica factors (paper Fig. 1"
@@ -204,7 +225,41 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+
+    mh, monitor = None, None
+    if args.multihost != "off":
+        spec = mhmod.spec_from_env()
+        if spec is not None:
+            if args.elastic_schedule:
+                ap.error("--elastic-schedule is incompatible with a multi-host fleet:"
+                         " membership is process-grained and signal-driven")
+            if args.faults:
+                ap.error("--faults is incompatible with a multi-host fleet: the"
+                         " HeartbeatMonitor is the liveness source; the injector stays"
+                         " a single-process test harness")
+            if args.speed == "measured":
+                ap.error("--speed measured is incompatible with a multi-host fleet:"
+                         " per-replica timing only observes the local slot block")
+            if args.placement != "sharded":
+                log("multihost forces --placement sharded")
+                args.placement = "sharded"
+            mh = mhmod.bootstrap(spec, device=spec.local_devices[0] if spec.local_devices
+                                 else args.device)
+            log("multihost bootstrap",
+                process=spec.process_id, n_processes=spec.num_processes,
+                spanning=mh.spanning, fleet_dir=spec.fleet_dir or "-",
+                devices=",".join(spec.local_devices or (args.device,)))
+            if mh.spanning == "host":
+                monitor = HeartbeatMonitor(
+                    spec.fleet_dir, process_id=spec.process_id,
+                    interval=args.heartbeat_interval, grace=args.heartbeat_grace,
+                )
+                monitor.renew(megabatch=0)
+                monitor.start()
+                mh.attach_liveness(monitor)
+                mh.rendezvous()
 
     if args.workload == "xml":
         model, provider, test_batches = build_xml_workload(args)
@@ -234,7 +289,9 @@ def main(argv=None):
         dev = torch.device(args.device)
         devices = None if dev.type == "cuda" and dev.index is None else [dev]
         device = None if devices is None else devices[0]
-        if schedule is None:
+        if mh is not None and mh.local_devices:
+            device = None   # the trainer meshes the fleet's local devices
+        elif schedule is None and mh is None:
             # with an elastic schedule the trainer draws a mesh for each
             # population from the same devices
             mesh = make_replica_mesh(ecfg.n_replicas, devices)
@@ -244,12 +301,13 @@ def main(argv=None):
         model=model, provider=provider, cfg=ecfg,
         base_lr=args.lr, speed=speed, seed=args.seed,
         device=device, engine=args.engine, sparse_grads=not args.dense_grads,
-        overlap=args.overlap == "on", mesh=mesh,
+        overlap=args.overlap == "on", mesh=mesh, multihost=mh,
     )
     fleet = None
-    if args.faults or args.timeout_factor > 0:
+    if args.faults or args.timeout_factor > 0 or monitor is not None:
         fleet = FleetController(
             injector=parse_fault_spec(args.faults) if args.faults else None,
+            monitor=monitor,
             min_replicas=args.min_replicas,
             max_replicas=args.max_replicas or 2 * ecfg.n_replicas,
             timeout_factor=args.timeout_factor,
@@ -258,12 +316,21 @@ def main(argv=None):
     manager = None
     if args.checkpoint_dir:
         manager = CheckpointManager(args.checkpoint_dir, every=args.checkpoint_every,
-                                    retain=args.checkpoint_retain)
-    state, mlog = trainer.run(
-        args.megabatches, test_batches=test_batches, verbose=True,
-        resize_schedule=schedule, fleet=fleet, checkpoint=manager,
-        restore_from=args.restore_from or None,
-    )
+                                    retain=args.checkpoint_retain,
+                                    publisher=mh is None or mh.process_id == 0)
+    try:
+        state, mlog = trainer.run(
+            args.megabatches, test_batches=test_batches, verbose=True,
+            resize_schedule=schedule, fleet=fleet, checkpoint=manager,
+            restore_from=args.restore_from or None,
+        )
+    finally:
+        if monitor is not None:
+            monitor.stop()
+    if monitor is not None:
+        # completed: flip the lease to 'done' so survivors read our exit as
+        # orderly, not as a missed deadline
+        monitor.renew(status="done")
     final = mlog.records[-1] if mlog.records else {}
     log("final",
         algorithm=args.algorithm,
@@ -271,10 +338,15 @@ def main(argv=None):
         virtual_time=round(final.get("virtual_time", float("nan")), 3))
     if fleet is not None:
         log("fleet", events=len(fleet.events), replicas=trainer.cfg.n_replicas)
+    if mh is not None:
+        log("multihost exchange", process=mh.process_id, spanning=mh.spanning,
+            stats=json.dumps(mh.stats, sort_keys=True))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(mlog.records, f, indent=1)
+    if mh is not None:
+        mh.shutdown()
     return state, mlog
 
 

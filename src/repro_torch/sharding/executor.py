@@ -24,6 +24,12 @@ side is reused only behind the work that read it. A tensor one shard reads
 from another inside a collective is waited for by event and marked with
 ``record_stream``.
 
+Processes. Under a device span (``launch.multihost``) the axis spans every
+process's shards: each collective's local sum is completed by one
+``all_reduce`` over the process group (:class:`ReplicaAxis`), so the
+algorithms' in-round reductions cross processes as the reference's do over
+a global mesh.
+
 Failures. A shard that raises aborts the barrier, so the others leave any
 collective they wait in with ``BrokenBarrierError``; ``run`` raises the
 first shard's own error (not a broken barrier) once every worker has
@@ -83,15 +89,26 @@ def _fetch(x, ev, device):
 
 
 class ReplicaAxis:
-    """The collectives over one mesh axis of ``size`` shards."""
+    """The collectives over one mesh axis of ``size`` shards.
 
-    def __init__(self, size: int):
-        self.size = int(size)
-        self._barrier = threading.Barrier(self.size)
-        self._slots: list = [None] * self.size
+    ``cross`` — the device span's ``launch.multihost.MultihostContext``:
+    the axis then runs over every process's shards (``size`` counts them
+    all), and each collective's local sum, in shard order, is followed by
+    one ``all_reduce`` over the process group, made by shard 0's worker,
+    before any shard takes the result. Without it the path is the one
+    process's."""
+
+    def __init__(self, size: int, cross=None):
+        self.local_size = int(size)
+        self.cross = cross
+        self.size = self.local_size * (len(cross.active_processes()) if cross else 1)
+        self._barrier = threading.Barrier(self.local_size)
+        self._slots: list = [None] * self.local_size
         self._results: dict = {}
 
-    def _reduce(self, x, combine):
+    def _reduce(self, x, combine, op: str):
+        if self.cross is not None:
+            return self._reduce_across(x, combine, op)
         if self.size == 1:
             return x
         s = shard_index()
@@ -116,32 +133,60 @@ class ReplicaAxis:
             del self._results[device]
         return out
 
+    def _reduce_across(self, x, combine, op: str):
+        """The local sum in shard order on shard 0, then the process
+        group's ``all_reduce``; every shard fetches the result."""
+        if self.local_size == 1:
+            return self.cross.all_reduce_tensor(x, op)
+        s = shard_index()
+        device = x.device if isinstance(x, torch.Tensor) else None
+        self._slots[s] = (x, _ready(x), device)
+        self._barrier.wait()            # every partial deposited
+        if s == 0:
+            total = None
+            for t, ev, _ in self._slots:
+                t = _fetch(t, ev, device)
+                total = t if total is None else combine(total, t)
+            total = self.cross.all_reduce_tensor(total, op)
+            self._results["all"] = (total, _ready(total))
+        self._barrier.wait()            # the result made, every slot read
+        self._slots[s] = None
+        total, ev = self._results["all"]
+        out = _fetch(total, ev, device)
+        self._barrier.wait()            # every shard holds its result
+        if s == 0:
+            del self._results["all"]
+        return out
+
     def all_sum(self, x):
         """The sum of ``x`` over the shards, in shard order (tensors, on
         each shard's own device, or host numbers)."""
-        return self._reduce(x, lambda a, b: a + b)
+        return self._reduce(x, lambda a, b: a + b, "sum")
 
     def all_max(self, x):
         """The maximum of ``x`` over the shards."""
         return self._reduce(
-            x, lambda a, b: torch.maximum(a, b) if isinstance(a, torch.Tensor) else max(a, b))
+            x, lambda a, b: torch.maximum(a, b) if isinstance(a, torch.Tensor) else max(a, b),
+            "max")
 
     def abort(self) -> None:
         self._barrier.abort()
 
     def reset(self) -> None:
         self._barrier.reset()
-        self._slots = [None] * self.size
+        self._slots = [None] * self.local_size
         self._results = {}
 
 
 class ShardExecutor:
-    """One persistent worker thread per shard of ``mesh`` (module doc)."""
+    """One persistent worker thread per shard of ``mesh`` (module doc);
+    ``cross`` extends its replica axis over the device span's processes
+    (:class:`ReplicaAxis`)."""
 
-    def __init__(self, mesh, axis_name: str):
+    def __init__(self, mesh, axis_name: str, cross=None):
         self.mesh = mesh_devices(mesh)
         self.axis_name = axis_name
-        self.axis = ReplicaAxis(len(self.mesh))
+        self.axis = ReplicaAxis(len(self.mesh), cross)
         self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None for d in self.mesh]
         self._inbox = [queue.SimpleQueue() for _ in self.mesh]
         self._outbox: queue.SimpleQueue = queue.SimpleQueue()

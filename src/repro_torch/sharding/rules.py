@@ -10,6 +10,7 @@ device more than once: ``("cpu",) * 4`` is four logical shards on the CPU
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: name of the replica mesh's one axis (``core.algorithms.replica_axis_name``)
@@ -44,6 +45,25 @@ def mesh_devices(devices=None) -> tuple:
     if not out:
         raise ValueError("a replica mesh needs at least one device")
     return tuple(out)
+
+
+def global_replica_devices(multihost=None) -> list:
+    """The fleet's devices as ``(process, device)`` pairs, ordered by
+    (process, local index): each process's devices form one contiguous
+    block and every process derives the same list (the reference's order
+    of ``jax.devices()`` across ``jax.distributed`` processes). Slot block
+    p of the replica dim lands on process p's devices.
+
+    ``multihost`` — a ``launch.multihost.MultihostContext``: its local
+    devices (every visible card when it names none) are gathered from every
+    process. Without one, this process's visible cards."""
+    if multihost is None:
+        return [(0, d) for d in mesh_devices(None)]
+    local = mesh_devices(multihost.local_devices)
+    # one leaf (an array of names): every process's tree has one shape
+    gathered = multihost.allgather("devices", np.asarray([str(d) for d in local]))
+    return [(pid, torch.device(str(name))) for pid in sorted(gathered)
+            for name in gathered[pid]]
 
 
 def replica_mesh(n_replicas: int, devices=None) -> tuple:

@@ -106,6 +106,46 @@ def unflatten(flat: dict):
     return lists(root)
 
 
+def tree_flatten(tree) -> tuple[list, tuple]:
+    """The leaves of a nested tree of dicts, lists and tuples, and its
+    structure, in the reference's leaf order (``jax.tree_util``'s): a dict's
+    children by sorted key, a list's or tuple's in order; ``None`` holds no
+    leaf; anything else is a leaf. The multi-process exchange files number
+    leaves in this order, so both packages read each other's."""
+    if tree is None:
+        return [], ("none",)
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        kind, children = ("dict", tuple(keys)), [tree[k] for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        kind, children = (type(tree).__name__, len(tree)), list(tree)
+    else:
+        return [tree], ("leaf",)
+    leaves, defs = [], []
+    for child in children:
+        sub, d = tree_flatten(child)
+        leaves.extend(sub)
+        defs.append(d)
+    return leaves, kind + (tuple(defs),)
+
+
+def tree_unflatten(treedef: tuple, leaves) -> object:
+    """Inverse of :func:`tree_flatten`."""
+    it = iter(leaves)
+
+    def build(d):
+        if d[0] == "none":
+            return None
+        if d[0] == "leaf":
+            return next(it)
+        children = [build(c) for c in d[2]]
+        if d[0] == "dict":
+            return dict(zip(d[1], children))
+        return children if d[0] == "list" else tuple(children)
+
+    return build(treedef)
+
+
 def tree_size(a) -> int:
     """Total number of scalar parameters in the tree (either layout)."""
     if isinstance(a, ShardedTree):

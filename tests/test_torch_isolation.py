@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
 checkpoint store, the fleet controller, the overlap pipeline's staging
 modules, the measured speed model, libSVM I/O and the sharded placement's
-mesh rules and executor among them) loads neither JAX nor any module of
+mesh rules and executor and the multi-process modules among them) loads
+neither JAX nor any module of
 the reference package, builds no kernel, and the trainer refuses to fall
 back to the CPU when no card is present, under either placement."""
 from __future__ import annotations
@@ -46,6 +47,8 @@ HOST_MODULES = ("repro_torch.core.heterogeneity", "repro_torch.data.libsvm",
 SHARDED_MODULES = ("repro_torch.sharding.rules", "repro_torch.sharding.executor",
                    "repro_torch.launch.mesh", "repro_torch.utils.tree",
                    "repro_torch.core.algorithms.base")
+# multi-process training: the bootstrap and exchange, and the spawner
+MULTIHOST_MODULES = ("repro_torch.launch.multihost", "repro_torch.launch.multihost_launch")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -56,7 +59,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     ).stdout.splitlines()
     n_modules, bad, names, n_loaded = int(out[0]), out[1], out[2].split(","), int(out[3])
     assert n_modules >= 25, n_modules   # the walk really saw the package
-    for module in ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES + SHARDED_MODULES:
+    for module in (ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES + SHARDED_MODULES
+                   + MULTIHOST_MODULES):
         assert module in names, module
     assert bad == "", f"the port imported {bad}"
     assert n_loaded == 0                # nothing was built or loaded
@@ -84,10 +88,11 @@ def test_serve_launcher_without_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("module",
-                         ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES + SHARDED_MODULES)
+                         ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES + SHARDED_MODULES
+                         + MULTIHOST_MODULES)
 def test_elastic_module_alone_loads_no_jax_and_no_reference(module):
-    """Each elastic-membership, staging, host and sharded-placement module
-    imported on its own, in a fresh interpreter: nothing of JAX or of the
+    """Each elastic-membership, staging, host, sharded-placement and
+    multi-process module imported on its own, in a fresh interpreter: nothing of JAX or of the
     reference comes in with it."""
     probe = (f"import sys, {module}\n"
              "print(','.join(sorted(m for m in sys.modules if m == 'jax' or m == 'repro'"
