@@ -31,7 +31,9 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    spmm_grad_w print each of their kernels' device time; and spmm's
    autograd Function (dW and d feat_val) must agree with autograd through
    the plain forward. The LM serving kernels likewise: flash_attention at the
-   llama3.2-1b, moonshot-v1-16b-a3b and kimi-k2 (hd 112) prefill shapes,
+   llama3.2-1b, moonshot-v1-16b-a3b, kimi-k2 (hd 112), seamless-m4t (16/16
+   heads of 64) and internvl2 (16/8 heads of 128, 4,352 ragged rows) prefill
+   shapes,
    ssd_scan at the mamba2-780m one, moe_ffn_gmm at the moonshot one (bf16,
    B = 2, S = 4096; kimi-k2 B = 1), plus the reference's test shapes
    (ragged, windowed, non-causal, f32 and bf16; the bf16 ones reach the
@@ -203,6 +205,25 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    the machine shows two or more cards, (a) and (c) run again with a card
    of its own a process (NCCL for (c)); ``--only-multiprocess`` runs this
    phase alone after the build.
+15. encdec — the encoder-decoder and vision-frontend families,
+   seamless-m4t-large-v2 (an encoder over audio ``frames``, cross-attention
+   in every decoder layer) and internvl2-2b (``patch_embeds`` prepended to
+   the tokens). (a) Reduced, f32 with TF32 off, card against CPU from the
+   same weights: prefill logits with the flash flag on and four decode
+   steps within phase 7's 2e-3, greedy tokens identical, exactly one
+   flash launch per decoder layer in prefill (none from the encoder or the
+   cross blocks, none while decoding), and ``loss_fn`` with every leaf's
+   gradient, flags off, within 1e-4. (b) Full width and depth on one card,
+   bf16, B = 2, text S = 4,096 (cut from ``INPUT_SHAPES["prefill_32k"]``),
+   seamless's frames (2, 1152, 1024), internvl2's patch_embeds (2, 256,
+   1024): the flags-on prefill launches 24 flash kernels, all on the tensor
+   cores, its last-position logits held against the flags-off prefill as in
+   phase 8; both timed cold and warm (median of three), peak memory, each
+   under the profiler, seamless's encoder device time apart; greedy
+   decoding (32-token prompt, 16 new; steps/s the median of three; a run of
+   4 + 4 tokens profiled); one ``loss_fn`` + backward at S = 1,024 with
+   remat on, every leaf's gradient finite and nonzero. ``--only-encdec``
+   runs this phase alone after the build.
 
 Then one JSON line with every kernel's numbers (weighted_merge's from
 phase 3's f32 w2 leaf, with phase 9's full-width barrier under
@@ -211,7 +232,8 @@ spmm_grad_w's launches on theirs, under ``launches_by_path``; phase 11's and
 12's runs among them, with weighted_merge's no-momentum launches of phase
 12 (b, c), 13 and 14 under ``no_momentum_launches_by_path``; phase 13's paths are
 ``xml_sharded*``, phase 14's ``xml_multiprocess*``, each fleet's launches
-summed over its processes), and as
+summed over its processes; flash_attention's by path: phase 8's
+``lm_prefill``, phase 15's ``encdec_reduced`` and ``encdec_prefill``), and as
 the last line
 ``{"ok": true, "device": {...}}``. The data are synthetic, drawn from
 ``SEED``; the weights are random.
@@ -220,6 +242,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -1275,6 +1298,10 @@ def measured_phase(reset_counts, read_counts, full_model, full_provider, test_ba
             return out
 
         def measured_init():
+            # the previous run's trainer sits in a reference cycle (these
+            # patched methods): free its tensors now, not by a collection
+            # that lands inside the measurement (one freed 4.8 MB there)
+            gc.collect()
             torch.cuda.synchronize()
             before = torch.cuda.memory_allocated()
             state = init_state()
@@ -2213,7 +2240,226 @@ def multiprocess_phase(card: str, four_cards: bool) -> dict:
     return launches
 
 
-def main(only_multiprocess: bool = False) -> int:
+# phase 15's settings. (a) reduced seamless-m4t-large-v2 and internvl2-2b
+# (2 encoder and 2 decoder layers, d_model 256, f32), card against CPU from
+# the same weights: B = 2, 64 tokens, one sample masked in the loss; every
+# batch from ``launch/specs.py``'s ``make_train_batch`` (seed ``SEED``);
+# (b) both at full width and depth in bf16, B = 2, text S = 4,096 (cut from
+# INPUT_SHAPES["prefill_32k"]: batch 32 -> 2, sequence 32,768 -> 4,096),
+# seamless's frames (2, 1152, 1024), internvl2's patch_embeds (2, 256, 1024);
+# its training step at S = 1,024 (train_4k's sequence cut 4,096 -> 1,024).
+ENCDEC_FAMILIES = ("seamless-m4t-large-v2", "internvl2-2b")
+ENCDEC_SERVE_TOL = 2e-3                       # phase 7's, card against CPU
+ENCDEC_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)  # phase 9 (a)'s, f32 with TF32 off
+
+
+def encdec_phase(card: str) -> dict:
+    """Phase 15: the encoder-decoder and vision-frontend families (module
+    doc). Returns flash_attention's launches by path: the card's reduced
+    prefills of (a) and the first flags-on full-width prefill of (b)."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda as flash
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as MDL
+    from repro_torch.utils import tree as tu
+    from repro_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")          # TF32 off: (a) holds f32 to 1e-4
+    launches = {"encdec_reduced": 0, "encdec_prefill": 0}
+    t_last = [time.perf_counter()]
+
+    def lap() -> str:
+        """Seconds since the last lap: where the phase's time goes."""
+        now = time.perf_counter()
+        t, t_last[0] = now - t_last[0], now
+        return f"[{t:.1f} s]"
+
+    def reset():
+        flash.launches = flash.tensor_core_launches = 0
+
+    def batches(cfg, b, s, device):
+        """``make_train_batch``'s tokens, targets, mask and frontend input
+        (the port's smoke batch), and of them what ``prefill`` takes."""
+        batch = SP.make_train_batch(cfg, b, s, seed=SEED, device=device)
+        return batch, {k: batch[k] for k in SP.prefill_specs(cfg, b, s)}
+
+    def value_and_grad(cfg, params, batch):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in tu.flatten(params).items()}
+        loss, _ = MDL.loss_fn(cfg, tu.unflatten(leaves), batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    # ---- (a) reduced, card against CPU --------------------------------------
+    for arch in ENCDEC_FAMILIES:
+        base = ARCHS[arch].reduced()
+        cfg = dataclasses.replace(base, use_flash_kernel=True)
+        p_cpu = MDL.init(base, torch.Generator().manual_seed(SEED))
+        p_card = tree_map(lambda t: t.to(dev), p_cpu)
+        train_cpu, cpu_in = batches(cfg, 2, 64, "cpu")
+        train_cpu["sample_mask"][1] = False
+        toks = train_cpu["tokens"]
+        card_in = {k: v.to(dev) for k, v in cpu_in.items()}
+        reset()
+        got = MDL.prefill(cfg, p_card, card_in)
+        torch.cuda.synchronize()
+        n = flash.launches
+        launches["encdec_reduced"] += n
+        cpu = MDL.prefill(cfg, p_cpu, cpu_in)
+        prefill_err = (got.cpu() - cpu).abs().max().item()
+        reset()
+        caches = [MDL.init_cache(cfg, 2, 4, device=d) for d in (dev, "cpu")]
+        decode_err = 0.0
+        for i in range(4):
+            step = toks[:, i:i + 1]
+            lc, caches[0] = MDL.decode_step(cfg, p_card, caches[0], step.to(dev))
+            lp, caches[1] = MDL.decode_step(cfg, p_cpu, caches[1], step)
+            decode_err = max(decode_err, (lc.cpu() - lp).abs().max().item())
+        toks_card, _ = greedy_generate(cfg, p_card, toks[:, :8].to(dev), 8)
+        toks_cpu, _ = greedy_generate(cfg, p_cpu, toks[:, :8], 8)
+        same = torch.equal(toks_card.cpu(), toks_cpu)
+        decode_launches = flash.launches
+        # the loss and every leaf's gradient, flags off (training's setting)
+        loss_cpu, g_cpu = value_and_grad(base, p_cpu, train_cpu)
+        loss_card, g_card = value_and_grad(base, p_card, {k: v.to(dev) for k, v in train_cpu.items()})
+        grad_err, bad = 0.0, []
+        for k, g in g_card.items():
+            g, want = g.cpu(), g_cpu[k]
+            grad_err = max(grad_err, (g - want).abs().max().item())
+            if not torch.allclose(g, want, **ENCDEC_GRAD_TOL):
+                bad.append(k)
+        new = sum(k.startswith(("encoder.", "cross.", "frontend_proj")) for k in g_card)
+        print(f"encdec {cfg.name} card vs cpu: prefill logits max abs err {prefill_err:.3g}, "
+              f"decode {decode_err:.3g} (tol {ENCDEC_SERVE_TOL}); greedy tokens identical {same}; "
+              f"flash launches {n} for {cfg.n_layers} decoder layers "
+              f"({cfg.encoder_layers} encoder layers, {cfg.n_layers if base.encoder_layers else 0} "
+              f"cross blocks), {decode_launches} while decoding; loss {loss_card.item():.6f} vs "
+              f"{loss_cpu.item():.6f}, {len(g_card)} gradient leaves ({new} encoder, cross and "
+              f"frontend) max abs err {grad_err:.3g} (tol {ENCDEC_GRAD_TOL}) {lap()}")
+        if not (torch.allclose(got.cpu(), cpu, rtol=ENCDEC_SERVE_TOL, atol=ENCDEC_SERVE_TOL)
+                and decode_err <= ENCDEC_SERVE_TOL and same):
+            raise RuntimeError(f"encdec {cfg.name}: card and CPU disagree when serving")
+        if n != cfg.n_layers or decode_launches:
+            raise RuntimeError(f"encdec {cfg.name}: {n} flash launches in prefill, "
+                               f"{decode_launches} in decode; want {cfg.n_layers} and 0")
+        if bad or not torch.allclose(loss_card.cpu(), loss_cpu, **ENCDEC_GRAD_TOL):
+            raise RuntimeError(f"encdec {cfg.name}: loss or gradients {bad} disagree")
+        del p_cpu, p_card, g_cpu, g_card
+
+    # ---- (b) full width and depth, bf16, one card -----------------------------
+    for arch in ENCDEC_FAMILIES:
+        base = ARCHS[arch]
+        cfg = dataclasses.replace(base, use_flash_kernel=True)
+        torch.cuda.synchronize()
+        held_gb = torch.cuda.memory_allocated() / 1e9   # what earlier phases still hold
+        t0 = time.perf_counter()
+        params = MDL.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        sizes = []
+        tree_map(lambda t: sizes.append(t.numel()), params)
+        n_params = sum(sizes)
+        _, batch = batches(cfg, 2, 4096, dev)
+        tokens = batch["tokens"]
+        field = next(k for k in batch if k != "tokens")
+        prefill, prefill_plain = make_prefill_step(cfg), make_prefill_step(base)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        on = prefill(params, batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        n, n_tc = flash.launches, flash.tensor_core_launches
+        launches["encdec_prefill"] += n
+        peak_on = torch.cuda.max_memory_allocated() / 1e9
+        on_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            on_s.append(time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
+        off_s = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            off = prefill_plain(params, batch)
+            torch.cuda.synchronize()
+            off_s.append(time.perf_counter() - t0)
+        peak_off = torch.cuda.max_memory_allocated() / 1e9
+        on_warm, off_warm = sorted(on_s), sorted(off_s[1:])
+        rel = ((on - off).norm() / off.norm()).item()
+        agree = (on.argmax(-1) == off.argmax(-1)).float().mean().item()
+        s_total = 4096 + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+        print(f"encdec prefill {arch} ({cfg.encoder_layers} encoder + {cfg.n_layers} decoder "
+              f"layers, {n_params / 1e9:.3f} B params, bf16, B=2, text S=4096, {field} "
+              f"{tuple(batch[field].shape)}, decoder positions {s_total}; init {init_s:.2f} s): flags on "
+              f"{first_s:.3f} s first, {on_warm[1]:.4f} s warm (median of "
+              f"{', '.join(f'{t:.4f}' for t in on_warm)}); flags off {off_s[0]:.3f} s first, "
+              f"{off_warm[1]:.4f} s warm (median of {', '.join(f'{t:.4f}' for t in off_warm)}); "
+              f"peak device memory {peak_on:.2f} GB on, {peak_off:.2f} GB off ({held_gb:.2f} GB "
+              f"held before the init); flash launches {n} "
+              f"(expected {cfg.n_layers}), on the tensor cores {n_tc}; logits on vs off rel L2 "
+              f"err {rel:.3g} (tol 5e-2), max abs err {(on - off).abs().max().item():.3g}, argmax "
+              f"agreement {agree:.2f} {lap()}")
+        if n != cfg.n_layers or n_tc != n:
+            raise RuntimeError(f"encdec prefill {arch}: {n} flash launches ({n_tc} on the tensor "
+                               f"cores), want {cfg.n_layers}, all on the tensor cores")
+        if not (torch.isfinite(on).all() and on.shape == (2, 1, cfg.vocab_size) and rel <= 5e-2):
+            raise RuntimeError(f"encdec prefill {arch}: kernel and plain prefill disagree")
+        _, on_busy, _ = profile_call(f"encdec prefill {arch}", lambda: prefill(params, batch), top=8)
+        _, off_busy, _ = profile_call(f"encdec prefill flags off {arch}",
+                                      lambda: prefill_plain(params, batch), top=4)
+        if cfg.encoder_layers:
+            # the encoder's device time against the whole prefill's, both ways
+            with torch.no_grad():
+                enc_ms = device_ms(lambda: MDL._run_encoder(cfg, params, batch["frames"]), reps=3)
+            on_ms, off_ms = on_busy * 1e3, off_busy * 1e3
+            print(f"encdec prefill {arch} device time: encoder {enc_ms:.2f} ms; whole prefill "
+                  f"{on_ms:.2f} ms flags on ({enc_ms / on_ms:.1%} encoder, {on_ms - enc_ms:.2f} "
+                  f"ms decoder and head), {off_ms:.2f} ms flags off ({enc_ms / off_ms:.1%} "
+                  f"encoder)")
+        print(f"encdec prefill {arch} profiles {lap()}")
+        del on, off
+        # greedy decoding: no frontend input, as in the reference
+        runs = [greedy_generate(cfg, params, tokens[:, :32], 16) for _ in range(3)]
+        toks, rates = runs[0][0], sorted(rate for _, rate in runs)
+        print(f"encdec decode {arch}: greedy 32-token prompt + 16 new tokens, B=2: "
+              f"{rates[1]:.2f} decode steps/s (median of {', '.join(f'{r:.2f}' for r in rates)}) "
+              f"{lap()}")
+        # the device's share of a step from a short run (4-token prompt, 4
+        # new): the profiler's processing grows with the steps it traced
+        wall, busy, n_ops = profile_call(
+            f"encdec decode {arch}", lambda: greedy_generate(cfg, params, tokens[:, :4], 4), top=0)
+        print(f"profile encdec decode {arch}: a step of the 8 {wall / 8 * 1e3:.2f} ms under the "
+              f"profiler, device busy {busy / 8 * 1e3:.2f} ms, {n_ops / 8:.0f} device ops")
+        if toks.shape != (2, 16) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise RuntimeError(f"encdec decode {arch}: bad tokens {toks}")
+        # one training step's loss and gradient at S = 1,024, remat on, flags off
+        train, _ = batches(cfg, 2, 1024, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(dataclasses.replace(base, remat=True), params, train)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        dead = [k for k, g in grads.items() if not (torch.isfinite(g).all() and g.any())]
+        new = [k for k in grads if k.startswith(("encoder.", "cross.", "frontend_proj"))]
+        print(f"encdec train {arch}: loss_fn + backward at B=2, S=1024, remat on: loss "
+              f"{loss.item():.4f}, {train_s:.3f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {len(grads)} gradient leaves "
+              f"({len(new)} encoder, cross and frontend), {len(dead)} not finite or all zero "
+              f"{lap()}")
+        if not torch.isfinite(loss) or dead or not new:
+            raise RuntimeError(f"encdec train {arch}: loss {loss.item()}, dead leaves {dead}")
+        del params, grads, batch, train, tokens
+        torch.cuda.empty_cache()
+    print(f"encdec flash launches: {launches} ({card})")
+    return launches
+
+
+def main(only_multiprocess: bool = False, only_encdec: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2274,6 +2520,15 @@ def main(only_multiprocess: bool = False) -> int:
         # line comes from the full run
         multiprocess = multiprocess_phase(smi, four_cards=torch.cuda.device_count() >= 2)
         print(f"multiprocess launches: {json.dumps(multiprocess)}")
+        print(f"seconds: {time.perf_counter() - t_start:.1f}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+    if only_encdec:
+        # phase 15 alone; the kernels' line comes from the full run
+        t0 = time.perf_counter()
+        encdec_phase(smi)
+        print(f"encdec seconds: {time.perf_counter() - t0:.1f}")
         print(f"seconds: {time.perf_counter() - t_start:.1f}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -2641,6 +2896,13 @@ def main(only_multiprocess: bool = False) -> int:
                torch.bfloat16, BF16_LONG_ATTN_TOL, library=True)
     # kimi-k2-1t-a32b's attention (64 q heads, 8 kv heads, head dim 112)
     flash_case("kimi-k2 bf16 (1,4096,64/8,112) causal", 1, 4096, 4096, 64, 8, 112, True, 0,
+               torch.bfloat16, BF16_LONG_ATTN_TOL, library=True)
+    # the decoder self-attention of phase 15's full-width prefills:
+    # seamless-m4t (16 heads of 64, no GQA) and internvl2 (16 q / 8 kv heads
+    # of 128 over 256 patches + 4,096 tokens: 4,352 rows, ragged)
+    flash_case("seamless-m4t bf16 (2,4096,16/16,64) causal", 2, 4096, 4096, 16, 16, 64, True, 0,
+               torch.bfloat16, BF16_LONG_ATTN_TOL, library=True)
+    flash_case("internvl2 bf16 (2,4352,16/8,128) causal", 2, 4352, 4352, 16, 8, 128, True, 0,
                torch.bfloat16, BF16_LONG_ATTN_TOL, library=True)
     for case in ((2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 8, 2, 32, True, 64),
                  (2, 96, 160, 4, 4, 64, False, 0), (1, 200, 200, 2, 1, 64, True, 0)):
@@ -3157,6 +3419,12 @@ def main(only_multiprocess: bool = False) -> int:
     # ---- 14. multi-process training: host span, the drill, device span ------
     torch.cuda.empty_cache()
     multiprocess = multiprocess_phase(smi, four_cards=torch.cuda.device_count() >= 2)
+
+    # ---- 15. the encoder-decoder and vision-frontend families ---------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    encdec = encdec_phase(smi)
+    print(f"encdec seconds: {time.perf_counter() - t0:.1f}")
     multiprocess_paths = {
         "(a)": "xml_multiprocess_host", "(c) sync": "xml_multiprocess_device_sync",
         "(c) adaptive": "xml_multiprocess_device", "(d)": "xml_multiprocess_dense",
@@ -3248,6 +3516,11 @@ def main(only_multiprocess: bool = False) -> int:
         + sum(counts["sort_rows"] for counts in sharded.values())
         + sum(counts["sort_rows"] for counts in multiprocess.values()))
     launches.update(lm_launches)
+    # flash_attention: phase 8's first flags-on prefills, and phase 15's
+    # reduced prefills on the card (a) and first full-width ones (b)
+    results["flash_attention"]["launches_by_path"] = {
+        "lm_prefill": lm_launches["flash_attention"], **encdec}
+    launches["flash_attention"] = sum(results["flash_attention"]["launches_by_path"].values())
     kernels = []
     for name, r in results.items():
         kernels.append(dict(
@@ -3264,4 +3537,5 @@ def main(only_multiprocess: bool = False) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phase14-child":
         sys.exit(phase14_child(json.loads(sys.argv[2])))
-    sys.exit(main(only_multiprocess=sys.argv[1:] == ["--only-multiprocess"]))
+    sys.exit(main(only_multiprocess=sys.argv[1:] == ["--only-multiprocess"],
+                  only_encdec=sys.argv[1:] == ["--only-encdec"]))

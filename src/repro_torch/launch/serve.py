@@ -1,10 +1,12 @@
-"""Serving launcher: greedy generation for the decoder-only architectures.
+"""Serving launcher: greedy generation for every registered architecture.
 
 Port of ``repro/launch/serve.py``. ``greedy_generate`` feeds the prompt
 through ``decode_step`` one token at a time (the cache-consistent path),
-then decodes greedily. Same arguments and log line as the reference, plus
-``--device`` (default ``cuda``, which raises without a card; ``cpu`` runs
-on the CPU). The ``--arch`` configs keep the kernel flags off, as in the
+then decodes greedily. As in the reference, decoding takes no frontend
+input: seamless-m4t decodes against its cache's all-zero cross-attention
+memory, internvl2 without image patches. Same arguments and log line as
+the reference, plus ``--device`` (default ``cuda``, which raises without a
+card; ``cpu`` runs on the CPU). The ``--arch`` configs keep the kernel flags off, as in the
 reference: decoding reaches no kernel; ``prefill`` with the flags on does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \

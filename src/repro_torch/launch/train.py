@@ -3,7 +3,9 @@
 Port of ``repro/launch/train.py``: any registered algorithm trains the
 paper's 3-layer sparse MLP on synthetic XML data (``--workload xml``) or a
 decoder-only LM architecture on a synthetic token stream (``--workload
-lm``, the default, with ``--arch`` default tinyllama-1.1b), with the same
+lm``, the default, with ``--arch`` default tinyllama-1.1b; the stream
+carries no ``frames`` or ``patch_embeds``, so seamless-m4t and internvl2
+stop with the reference's ``KeyError``), with the same
 flags, defaults and log lines as the reference (the subset this port
 supports: ``--engine``, ``--overlap``, ``--placement``, ``--speed``, ``--dense-grads``,
 ``--arch``,

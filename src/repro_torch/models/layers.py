@@ -13,7 +13,10 @@ materialized; q is reshaped to (B, S, Hkv, rep, hd) against the raw KV):
     model's own path for prefill; ``use_flash`` swaps in the CUDA kernel
     (``kernels/flash_attention``) where no key mask is given.
   * ``decode_attention``    — one-token query against a KV cache, updated
-    in place.
+    in place, or against an encoder memory's K/V (``cross=True``).
+
+Cross-attention (the encoder-decoder family) always takes the blockwise
+path: the reference's cross call passes no ``use_flash``.
 """
 from __future__ import annotations
 
@@ -64,6 +67,12 @@ def _heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, D) x (D, H, hd) -> (B, S, H, hd), contiguous."""
     d, n, hd = w.shape
     return (h @ w.reshape(d, n * hd)).view(*h.shape[:-1], n, hd)
+
+
+def memory_kv(params: dict, memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A cross-attention block's keys and values over an encoder memory
+    (B, Senc, D), taken from the raw memory (no norm, no RoPE)."""
+    return _heads(memory, params["wk"]), _heads(memory, params["wv"])
 
 
 def _merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -168,20 +177,26 @@ def attention_layer(
     norm_eps: float = 1e-5,
     q_chunk: int = 512,
     kv_chunk: int = 512,
+    cross_kv: Optional[tuple] = None,
     use_flash: bool = False,
 ) -> torch.Tensor:
-    """Pre-norm self-attention block: x + attn(norm(x)). x: (B, S, D).
-    (The reference's cross-attention variant comes with the
-    encoder-decoder path.)"""
+    """Pre-norm attention block: x + attn(norm(x)). x: (B, S, D).
+    ``cross_kv`` (k, v), each (B, Senc, Hkv, hd), makes it cross-attention
+    over an encoder memory: those are the keys and values, q takes no RoPE
+    and nothing is causal."""
     s = x.shape[1]
     h = rmsnorm(x, params["norm"], norm_eps)
     q = _heads(h, params["wq"])
-    k = _heads(h, params["wk"])
-    v = _heads(h, params["wv"])
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if cross_kv is None:
+        k = _heads(h, params["wk"])
+        v = _heads(h, params["wv"])
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    else:
+        k, v = cross_kv
+        causal = False
     if use_flash and kv_seq_mask is None:
         o = flash_attention(q, k, v, causal=causal, window=window)
     else:
@@ -203,35 +218,40 @@ def decode_attention(
     rope_theta: float,
     window: int = 0,
     norm_eps: float = 1e-5,
+    cross: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token self-attention decode. x: (B, 1, D); cache_k/v: (B, S, Hkv, hd).
+    """One-token decode. x: (B, 1, D); cache_k/v: (B, S, Hkv, hd).
 
     Grouped-query native: the cache is never head-repeated. The new token's
     K/V are written into ``cache_k``/``cache_v`` in place (the reference
     returns updated copies); returns (out, cache_k, cache_v). ``cur_len``
     is the number of valid cache entries before this token. With
     ``window`` > 0 the cache is a rolling buffer of size S = window.
+    ``cross=True`` attends to an encoder memory's K/V: no write, no RoPE,
+    every entry valid.
     """
     b = x.shape[0]
     s_cache, hkv = cache_k.shape[1], cache_k.shape[2]
     h = rmsnorm(x, params["norm"], norm_eps)
     q = _heads(h, params["wq"])                                          # (B,1,Hq,hd)
-    k = _heads(h, params["wk"])
-    v = _heads(h, params["wv"])
-    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, rope_theta)
-    k = apply_rope(k, pos, rope_theta)
-    slot = cur_len % s_cache if window > 0 else cur_len
-    slot = min(slot, s_cache - 1)  # dynamic_update_slice clamps its start
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    if not cross:
+        k = _heads(h, params["wk"])
+        v = _heads(h, params["wv"])
+        pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+        slot = cur_len % s_cache if window > 0 else cur_len
+        slot = min(slot, s_cache - 1)  # dynamic_update_slice clamps its start
+        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     hq, hd = q.shape[2], q.shape[3]
     qg = q.reshape(b, hkv, hq // hkv, hd)                                # Sq == 1 folded out
     # f32 accumulation without casting the cache's storage dtype: bf16
     # products are exact in f32, as with the reference's preferred_element_type
     s = torch.einsum("bhrk,bshk->bhrs", qg.float(), cache_k.float()) * hd ** -0.5
-    valid = torch.arange(s_cache, device=x.device) < min(cur_len + 1, s_cache)
-    s = torch.where(valid, s, float("-inf"))
+    if not cross:
+        valid = torch.arange(s_cache, device=x.device) < min(cur_len + 1, s_cache)
+        s = torch.where(valid, s, float("-inf"))
     p = torch.softmax(s, dim=-1).to(cache_v.dtype)
     o = torch.einsum("bhrs,bshk->bhrk", p.float(), cache_v.float())
     o = o.reshape(b, 1, hq, hd).to(x.dtype)

@@ -1,14 +1,23 @@
-"""Unified causal LM for the decoder-only families: dense / GQA attention,
-MoE FFN, Mamba2 (SSD) mixers and hybrid interleaves (Jamba).
+"""Unified causal LM covering every registered architecture family: dense /
+GQA attention, MoE FFN, Mamba2 (SSD) mixers, hybrid interleaves (Jamba),
+encoder-decoder (Seamless, an audio frontend) and a vision frontend
+(InternVL2).
 
 Port of ``repro/models/model.py``. Layer stacks are grouped into (prefix,
 periodic blocks) as in the reference: ``params["blocks"]`` holds, for each
 position in the period, every group's leaves stacked on a leading dim, and
 the reference's ``lax.scan`` over groups is a loop over them; under
-``cfg.remat`` each group runs under activation checkpointing, as the
-reference's scan body does. The encoder-decoder path and the vision/audio
-frontends (seamless-m4t, internvl2) are not ported yet: they raise
-``NotImplementedError``.
+``cfg.remat`` each group (and each encoder layer) runs under activation
+checkpointing, as the reference's scan bodies do.
+
+The frontends are stubs, as in the reference: a batch carries precomputed
+embeddings, projected to ``d_model`` by ``frontend_proj``. ``frames`` (B,
+F, Fd) feed the encoder (non-causal self-attention + MLP per layer), whose
+memory every decoder layer cross-attends to through ``params["cross"][i]``
+(no RoPE, blockwise, never the flash kernel); ``patch_embeds`` (B, P, Fd)
+are prepended to the token embeddings, and the loss skips their
+positions. Decoding sees neither, as in the reference: the cache's
+``cross_kv`` holds zeros, and decode positions start at 0.
 
 Training runs with the kernel flags off: the LM kernels are forward-only,
 here as in the reference, whose ``jax.grad`` cannot differentiate them.
@@ -27,6 +36,7 @@ API:
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -64,14 +74,6 @@ def find_prefix_period(pattern: list) -> tuple[int, int]:
             if all(rest[i] == rest[i % period] for i in range(len(rest))):
                 return prefix, period
     return n, 1  # fully unrolled fallback
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers > 0 or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder path and the vision/audio frontends "
-            "(seamless-m4t, internvl2) are not ported yet"
-        )
 
 
 KERNEL_FLAGS = ("use_flash_kernel", "use_ssd_kernel", "use_gmm_kernel")
@@ -172,8 +174,9 @@ def apply_sublayers(
     ffn_kind: str,
     params: dict,
     x: torch.Tensor,
+    cross: Optional[tuple] = None,  # (cross_params, encoder_memory)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Train/prefill path: mixer -> ffn. Returns (x, aux)."""
+    """Train/prefill path: mixer -> [cross-attn] -> ffn. Returns (x, aux)."""
     aux = torch.zeros((), device=x.device)
     if kind == "attn":
         x = L.attention_layer(
@@ -189,6 +192,12 @@ def apply_sublayers(
             params["mixer"], x,
             head_dim=cfg.ssm_head_dim, state=cfg.ssm_state, chunk=cfg.ssm_chunk,
             norm_eps=cfg.norm_eps, use_kernel=cfg.use_ssd_kernel,
+        )
+    if cross is not None:
+        cp, mem = cross
+        x = L.attention_layer(
+            cp, x, n_rep=cfg.n_heads // cfg.n_kv_heads, rope_theta=cfg.rope_theta,
+            norm_eps=cfg.norm_eps, cross_kv=L.memory_kv(cp, mem),
         )
     if ffn_kind == "moe":
         x, aux = MOE.moe_layer(
@@ -210,8 +219,10 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random weights on the generator's device, in the reference's tree:
     ``embed``, ``prefix`` (list), ``blocks`` (``pos{j}`` stacked over
     groups; one group even when the pattern has none, as the reference
-    inits), ``final_norm`` and, unless tied, ``lm_head``."""
-    _check_supported(cfg)
+    inits), ``final_norm``, unless tied ``lm_head``; for an encoder,
+    ``encoder`` (``layers``: attention + dense sublayers stacked over
+    ``encoder_layers``, and ``norm``) and ``cross`` (one attention dict a
+    decoder layer); for a frontend, ``frontend_proj`` (Fd, D)."""
     dt = _dtype(cfg)
     pattern = layer_pattern(cfg)
     prefix, period = find_prefix_period(pattern)
@@ -228,12 +239,28 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
         params["lm_head"] = L.ninit(
             generator, (cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5, dt
         )
+    if cfg.encoder_layers > 0:
+        params["encoder"] = {
+            "layers": _stack([init_sublayers(cfg, generator, "attn", "dense")
+                              for _ in range(cfg.encoder_layers)]),
+            "norm": torch.zeros((cfg.d_model,), dtype=dt, device=generator.device),
+        }
+        params["cross"] = [
+            L.init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.resolved_head_dim, dt)
+            for _ in range(cfg.n_layers)
+        ]
+    if cfg.frontend is not None:
+        params["frontend_proj"] = L.ninit(
+            generator, (cfg.frontend_dim, cfg.d_model), cfg.frontend_dim ** -0.5, dt
+        )
     return params
 
 
 def params_from_jax(np_params, device, dtype=None):
     """The reference's parameter tree with numpy leaves (dicts, the
-    ``prefix`` list, stacked ``blocks``) to the port's, leaf for leaf.
+    ``prefix`` and ``cross`` lists, stacked ``blocks`` and
+    ``encoder.layers``, ``frontend_proj``) to the port's, leaf for leaf.
     ``dtype`` casts the floating leaves; by default each keeps its own
     (bfloat16 arrives as ml_dtypes and goes through f32, which is exact)."""
     if isinstance(np_params, dict):
@@ -253,36 +280,75 @@ def params_from_jax(np_params, device, dtype=None):
 # --------------------------------------------------------------------------
 
 
-def _trunk(cfg: ModelConfig, params: dict, x: torch.Tensor):
+def _run_encoder(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder over the projected frontend embeddings
+    (``frames`` cast to the model's dtype first): per layer non-causal
+    self-attention and the MLP, each layer under activation checkpointing
+    when ``cfg.remat`` is on and autograd records; then the encoder norm."""
+    x = frames.to(_dtype(cfg)) @ params["frontend_proj"]
+    enc = params["encoder"]
+
+    def body(x, lp):
+        h = L.attention_layer(lp["mixer"], x, n_rep=cfg.n_heads // cfg.n_kv_heads,
+                              rope_theta=cfg.rope_theta, causal=False, norm_eps=cfg.norm_eps)
+        return L.mlp_layer(lp["ffn"], h, cfg.norm_eps)
+
+    if cfg.remat and torch.is_grad_enabled():
+        body = _remat(cfg, body)
+    for lp in _unbind(enc["layers"]):
+        x = body(x, lp)
+    return L.rmsnorm(x, enc["norm"], cfg.norm_eps)
+
+
+def _trunk(cfg: ModelConfig, params: dict, x: torch.Tensor,
+           memory: Optional[torch.Tensor] = None):
     """Apply the prefix layers, then each group of the periodic blocks, the
     groups under activation checkpointing when ``cfg.remat`` is on and
-    autograd records (the prefix layers are not, as in the reference)."""
+    autograd records (the prefix layers are not, as in the reference).
+    With an encoder ``memory``, decoder layer i (``prefix + g * period +
+    j`` in group g) cross-attends to it through ``params["cross"][i]``."""
     pattern = layer_pattern(cfg)
     prefix, period = find_prefix_period(pattern)
+    cross_all = params.get("cross")
+
+    def cross(i):
+        return None if cross_all is None else (cross_all[i], memory)
+
     aux_total = torch.zeros((), device=x.device)
     for i in range(prefix):
-        x, aux = apply_sublayers(cfg, *pattern[i], params["prefix"][i], x)
+        x, aux = apply_sublayers(cfg, *pattern[i], params["prefix"][i], x, cross(i))
         aux_total = aux_total + aux
     blocks = [_unbind(params["blocks"][f"pos{j}"]) for j in range(period)]
 
-    def body(x, aux_acc, group):
+    def body(x, aux_acc, group, crosses):
         for j in range(period):
-            x, aux = apply_sublayers(cfg, *pattern[prefix + j], group[j], x)
+            x, aux = apply_sublayers(cfg, *pattern[prefix + j], group[j], x, crosses[j])
             aux_acc = aux_acc + aux
         return x, aux_acc
 
     if cfg.remat and torch.is_grad_enabled():
         body = _remat(cfg, body)
     for g in range(_n_groups(cfg, prefix, period)):
-        x, aux_total = body(x, aux_total, [blocks[j][g] for j in range(period)])
+        x, aux_total = body(x, aux_total, [blocks[j][g] for j in range(period)],
+                            [cross(prefix + g * period + j) for j in range(period)])
     return x, aux_total
 
 
 def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
-    """Token embeddings. Returns (x, n_vis); no frontend is ported, so
-    n_vis is 0."""
-    _check_supported(cfg)
-    return L.embed(params["embed"], batch["tokens"]), 0
+    """Token (+ vision frontend) embeddings. Returns (x, n_vis): the first
+    n_vis positions are the projected ``patch_embeds`` (cast to the
+    model's dtype first), not text, and the loss skips them."""
+    tok = L.embed(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision":
+        vis = batch["patch_embeds"].to(tok.dtype) @ params["frontend_proj"]
+        return torch.cat([vis, tok], dim=1), vis.shape[1]
+    return tok, 0
+
+
+def _memory(cfg: ModelConfig, params: dict, batch: dict) -> Optional[torch.Tensor]:
+    """The encoder's output over ``batch["frames"]``, or None without an
+    encoder."""
+    return _run_encoder(cfg, params, batch["frames"]) if cfg.encoder_layers > 0 else None
 
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -297,11 +363,15 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     """Masked causal-LM cross entropy over f32 logits, for one model (no
-    replica dim): ``tokens``/``targets`` (B, S), ``sample_mask`` (B,).
-    Returns (loss + router_aux_coef * moe_aux, aux) with aux = accuracy,
-    n_valid (live samples), moe_aux and ce_loss."""
-    x, _ = _embed_inputs(cfg, params, batch)
-    x, moe_aux = _trunk(cfg, params, x)
+    replica dim): ``tokens``/``targets`` (B, S), ``sample_mask`` (B,), and
+    ``frames`` or ``patch_embeds`` (B, F, Fd) for a frontend. Returns (loss
+    + router_aux_coef * moe_aux, aux) with aux = accuracy, n_valid (live
+    samples), moe_aux and ce_loss."""
+    memory = _memory(cfg, params, batch)
+    x, n_vis = _embed_inputs(cfg, params, batch)
+    x, moe_aux = _trunk(cfg, params, x, memory)
+    if n_vis:
+        x = x[:, n_vis:]
     logits = _logits(cfg, params, x)
     logp = torch.log_softmax(logits, dim=-1)
     tgt = batch["targets"].long()
@@ -317,10 +387,12 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Full-sequence forward over ``batch["tokens"]`` (B, S), returning the
-    last position's logits (B, 1, V) in f32."""
+    """Full-sequence forward over ``batch["tokens"]`` (B, S) (and the
+    frontend's ``frames`` or ``patch_embeds``), returning the last
+    position's logits (B, 1, V) in f32."""
+    memory = _memory(cfg, params, batch)
     x, _ = _embed_inputs(cfg, params, batch)
-    x, _ = _trunk(cfg, params, x)
+    x, _ = _trunk(cfg, params, x, memory)
     return _logits(cfg, params, x[:, -1:, :])
 
 
@@ -348,8 +420,9 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, device
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
                device=None) -> dict:
     """window > 0 => rolling attention buffers of that size. ``cur_len``
-    is a Python int: the number of tokens the cache holds."""
-    _check_supported(cfg)
+    is a Python int: the number of tokens the cache holds. With an encoder,
+    ``cross_kv`` holds one (B, frontend_len, Hkv, hd) K/V pair of zeros a
+    decoder layer, as in the reference, where nothing writes it."""
     pattern = layer_pattern(cfg)
     prefix, period = find_prefix_period(pattern)
     n_groups = _n_groups(cfg, prefix, period)
@@ -365,11 +438,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
         cache["blocks"][f"pos{j}"] = {
             k: v[None].repeat((n_groups,) + (1,) * v.ndim) for k, v in one.items()
         }
+    if cfg.encoder_layers > 0:
+        shape = (batch, cfg.frontend_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["cross_kv"] = [
+            {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+             "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+            for _ in range(cfg.n_layers)
+        ]
     return cache
 
 
 def _decode_sublayers(cfg: ModelConfig, kind: str, ffn_kind: str, params: dict,
-                      x: torch.Tensor, cache: dict, cur_len: int, window: int):
+                      x: torch.Tensor, cache: dict, cur_len: int, window: int,
+                      cross: Optional[tuple] = None):  # (cross_params, cross_kv_cache)
     if kind == "attn":
         x, _, _ = L.decode_attention(
             params["mixer"], x, cache["k"], cache["v"], cur_len,
@@ -380,6 +461,12 @@ def _decode_sublayers(cfg: ModelConfig, kind: str, ffn_kind: str, params: dict,
         x, _ = M.mamba2_decode_step(
             params["mixer"], x, cache,
             head_dim=cfg.ssm_head_dim, state=cfg.ssm_state, norm_eps=cfg.norm_eps,
+        )
+    if cross is not None:
+        cp, ckv = cross
+        x, _, _ = L.decode_attention(
+            cp, x, ckv["k"], ckv["v"], cur_len, n_rep=cfg.n_heads // cfg.n_kv_heads,
+            rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps, cross=True,
         )
     if ffn_kind == "moe":
         decode_dispatch = "gather" if cfg.moe_decode_gather else cfg.moe_dispatch
@@ -399,15 +486,22 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tenso
     pattern = layer_pattern(cfg)
     prefix, period = find_prefix_period(pattern)
     cur = cache["cur_len"]
+
+    def cross(i):
+        if cfg.encoder_layers == 0:
+            return None
+        return params["cross"][i], cache["cross_kv"][i]
+
     x = L.embed(params["embed"], tokens)
     for i in range(prefix):
         x = _decode_sublayers(cfg, *pattern[i], params["prefix"][i], x,
-                              cache["prefix"][i], cur, window)
+                              cache["prefix"][i], cur, window, cross(i))
     for g in range(_n_groups(cfg, prefix, period)):
         for j in range(period):
             x = _decode_sublayers(cfg, *pattern[prefix + j],
                                   _group(params["blocks"][f"pos{j}"], g), x,
-                                  _group(cache["blocks"][f"pos{j}"], g), cur, window)
+                                  _group(cache["blocks"][f"pos{j}"], g), cur, window,
+                                  cross(prefix + g * period + j))
     cache["cur_len"] = cur + 1
     return _logits(cfg, params, x), cache
 
@@ -423,8 +517,9 @@ def make_model(cfg: ModelConfig) -> TrainableModel:
     merge see one leaf per stacked tensor. ``loss_fn`` takes one model and
     (B, S) batches, or replica-stacked (R, ...) leaves and (R, B, S)
     batches and returns (R,) loss and aux: a loop over the replicas, each
-    on views of its leaves (the MoE dispatch's data-dependent sort and
-    ``index_put`` do not vectorize). No ``sparse_grad_fn``: the trainer
+    on views of its leaves and of every batch field, the frontend's
+    ``frames`` or ``patch_embeds`` (R, B, F, Fd) among them (the MoE
+    dispatch's data-dependent sort and ``index_put`` do not vectorize). No ``sparse_grad_fn``: the trainer
     takes dense autograd, as the reference does for the LM. Refuses a
     config with a kernel flag on (``refuse_kernel_flags``)."""
     refuse_kernel_flags(cfg)

@@ -82,19 +82,18 @@ ALIASES = ("arctic_480b", "internvl2_2b", "jamba_1_5_large_398b", "kimi_k2_1t_a3
 @pytest.mark.parametrize("alias", ALIASES)
 def test_config_alias_equals_the_reference(alias):
     """``repro_torch.configs.<alias>.CONFIG`` is the reference module's
-    ``CONFIG`` field for field, and the port's ``ARCHS`` entry itself (the
-    two families the port does not run yet import all the same)."""
+    ``CONFIG`` field for field, and the port's ``ARCHS`` entry itself."""
     port = importlib.import_module(f"repro_torch.configs.{alias}").CONFIG
     ref = importlib.import_module(f"repro.configs.{alias}").CONFIG
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port is torch_archs.ARCHS[ref.name]
 
 
-@pytest.mark.parametrize("arch", [a for a in torch_archs.ARCHS
-                                  if a not in ("seamless-m4t-large-v2", "internvl2-2b")])
+@pytest.mark.parametrize("arch", list(torch_archs.ARCHS))
 def test_init_tree_matches_the_reference(arch):
     """The port's random init has the reference's tree: same leaves, shapes
-    and dtypes, for every decoder-only architecture (reduced)."""
+    and dtypes, for every architecture (reduced), the encoder, the cross
+    blocks and the frontend projection among them."""
     jcfg, tcfg = _configs(arch, False)
     want = jax.eval_shape(lambda: JMDL.init(jcfg, jax.random.PRNGKey(0)))
     got = MDL.init(tcfg, torch.Generator().manual_seed(0))
@@ -119,13 +118,6 @@ def test_mamba2_init_cache_matches_the_reference():
                                dtype=torch.float32, **kw)
     assert {k: (tuple(v.shape), not v.any()) for k, v in got.items()} == {
         k: (v.shape, not np.asarray(v).any()) for k, v in want.items()}
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-2b"])
-def test_encoder_and_frontend_families_are_not_ported(arch):
-    cfg = torch_archs.ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MDL.init(cfg, torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernel-flags"])

@@ -20,7 +20,9 @@ from repro_torch.configs import archs as torch_archs
 from repro_torch.launch import serve, steps
 from repro_torch.models import model as MDL
 
-ARCHS = ["llama3.2-1b", "mamba2-780m", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b"]
+# the decoder-only families and the encoder-decoder and vision-frontend ones
+ARCHS = ["llama3.2-1b", "mamba2-780m", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
+         "seamless-m4t-large-v2", "internvl2-2b"]
 
 
 def _setup(arch, **flags):
