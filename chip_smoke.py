@@ -224,6 +224,25 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    4 + 4 tokens profiled); one ``loss_fn`` + backward at S = 1,024 with
    remat on, every leaf's gradient finite and nonzero. ``--only-encdec``
    runs this phase alone after the build.
+16. partitioned — the partitioned-program path (``launch.steps``'
+   ``make_partitioned_*``, ``launch.dryrun``). (a) The dry run at full
+   size on the single-pod production mesh (16 x 16, a fake process group of
+   256 ranks, fake tensors; each a process of its own, all four at once):
+   llama3.2-1b train_4k (train round and merge), moonshot-v1-16b-a3b
+   prefill_32k, mamba2-780m decode_32k and kimi-k2-1t-a32b train_4k (FSDP
+   and expert parallelism); prints each step's per-device FLOPs, HBM
+   bytes, collective bytes, argument and temp bytes, trace seconds and
+   whether it fits the card's 80 GB. (b) The partitioned steps on real
+   ranks over NCCL (``launch.partitioned``): with four or more cards a
+   (2, 2) mesh, one process a card, else a (1, 1) mesh on one card; the
+   reduced llama3.2-1b train round and merge against the unpartitioned
+   round on the card (loss rtol 2e-3; merged leaves rtol 3e-2, atol 3e-3:
+   the reference's ``tests/test_sharded_integration.py``) and the reduced
+   kimi-k2 prefill with the sharded MoE dispatch against the unpartitioned
+   prefill with the same dispatch groups (2e-3); every rank merges every
+   leaf through ``weighted_merge`` once (its no-momentum branch), counted
+   against the leaves. ``--only-partitioned`` runs this phase alone after
+   the build.
 
 Then one JSON line with every kernel's numbers (weighted_merge's from
 phase 3's f32 w2 leaf, with phase 9's full-width barrier under
@@ -2459,7 +2478,87 @@ def encdec_phase(card: str) -> dict:
     return launches
 
 
-def main(only_multiprocess: bool = False, only_encdec: bool = False) -> int:
+# phase 16 (a): the full-size combinations, each with the steps it traces
+DRYRUN_COMBOS = (("llama3.2-1b", "train_4k"), ("moonshot-v1-16b-a3b", "prefill_32k"),
+                 ("mamba2-780m", "decode_32k"), ("kimi-k2-1t-a32b", "train_4k"))
+PART_LOSS_TOL = dict(rtol=2e-3, atol=0.0)         # tests/test_sharded_integration.py
+PART_LEAF_TOL = dict(rtol=3e-2, atol=3e-3)
+PART_MOE_TOL = dict(rtol=2e-3, atol=2e-3)         # phase 7's
+
+
+def partitioned_phase(card: str) -> dict:
+    """Phase 16 (module doc). Returns weighted_merge's launches in (b)."""
+    import tempfile
+
+    from repro_torch.launch import partitioned as PT
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="phase16-"))
+    env = dict(os.environ)
+    # (a) the dry run: four fresh interpreters at once (each stands up its
+    # own fake group of 256 ranks; none touches the card)
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape in DRYRUN_COMBOS:
+        out = work / f"{arch}__{shape}"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "single", "--out", str(out), "--trace-dir", ""]
+        procs.append((arch, shape, out, subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for arch, shape, out, p in procs:
+        text, _ = p.communicate(timeout=600)
+        if p.returncode:
+            raise RuntimeError(f"dry run of {arch} {shape} failed:\n{text[-3000:]}")
+        rec = json.loads((out / f"{arch}__{shape}__singlepod.json").read_text())
+        for step, st in rec["steps"].items():
+            mem = st["memory"]
+            colls = ", ".join(f"{k} {v:.4g}" for k, v in st["collectives"]["bytes"].items() if v)
+            print(f"16 (a) {arch} {shape} {step} [{card}]: per device flops={st['flops']:.6g} "
+                  f"hbm={st['hbm_bytes']:.6g} B collectives="
+                  f"{sum(st['collectives']['bytes'].values()):.6g} B "
+                  f"({colls})"
+                  f" argument={mem['argument_size_in_bytes']:.6g} B "
+                  f"temp={mem['temp_size_in_bytes']:.6g} B fits 80 GB={st['fits_hbm']} "
+                  f"trace {st['trace_s']:.1f} s; traced (groups, seq) {st['traced']}")
+            for k in ("flops", "hbm_bytes"):
+                if not math.isfinite(st[k]) or st[k] < 0:
+                    raise RuntimeError(f"16 (a) {arch} {shape} {step}: {k} = {st[k]}")
+            if step != "merge" and st["flops"] <= 0:
+                raise RuntimeError(f"16 (a) {arch} {shape} {step}: no FLOPs counted")
+        print(f"16 (a) {arch} {shape}: model_flops_per_token {rec['model_flops_per_token']:.6g}"
+              f" total_params {rec['total_params']:.6g} n_devices "
+              f"{rec['steps'][next(iter(rec['steps']))]['n_devices']}")
+    print(f"16 (a) dry run: {time.perf_counter() - t0:.1f} s wall (4 processes at once)")
+
+    # (b) the partitioned steps on real ranks, NCCL
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    n_procs, mesh_shape = (4, (2, 2)) if n_cards >= 4 else (1, (1, 1))
+    res = PT.spawn(n_procs, mesh_shape, "cuda", str(work / "ranks"), timeout=300)
+    inputs = PT.init_inputs()
+    one = PT.unpartitioned(inputs, torch.device("cuda"), mesh_shape)
+    torch.cuda.synchronize()
+    loss_err = check_close("16 (b) losses, partitioned vs one card", torch.from_numpy(res["loss"]),
+                           one["loss"].cpu(), PART_LOSS_TOL)
+    leaf_err = max(check_close(f"16 (b) merged {k}", torch.from_numpy(res[f"merged/{k}"]),
+                               v.float().cpu(), PART_LEAF_TOL) for k, v in one["merged"].items())
+    moe_err = check_close("16 (b) pod-axis MoE prefill logits", torch.from_numpy(res["moe_logits"]),
+                          one["logits"].float().cpu(), PART_MOE_TOL)
+    n_leaves = len(one["merged"])
+    launches = int(res["merge_launches"])
+    if launches != n_leaves * n_procs:
+        raise RuntimeError(f"16 (b): {launches} weighted_merge launches, want one a leaf a rank "
+                           f"({n_leaves} x {n_procs})")
+    print(f"16 (b) [{card}] mesh {mesh_shape} over {n_procs} process(es), NCCL: losses "
+          f"{res['loss'].tolist()} (max abs err {loss_err:.3g}), merged leaves max err "
+          f"{leaf_err:.3g}, MoE logits max err {moe_err:.3g}; weighted_merge launches "
+          f"{launches} = {n_leaves} leaves x {n_procs} ranks; {time.perf_counter() - t0:.1f} s")
+    print(f"16 partitioned: {time.perf_counter() - t_phase:.1f} s")
+    return {"weighted_merge": launches}
+
+
+def main(only_multiprocess: bool = False, only_encdec: bool = False,
+         only_partitioned: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2520,6 +2619,13 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False) -> int:
         # line comes from the full run
         multiprocess = multiprocess_phase(smi, four_cards=torch.cuda.device_count() >= 2)
         print(f"multiprocess launches: {json.dumps(multiprocess)}")
+        print(f"seconds: {time.perf_counter() - t_start:.1f}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+    if only_partitioned:
+        # phase 16 alone; the kernels' line comes from the full run
+        partitioned_phase(smi)
         print(f"seconds: {time.perf_counter() - t_start:.1f}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3425,6 +3531,10 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False) -> int:
     t0 = time.perf_counter()
     encdec = encdec_phase(smi)
     print(f"encdec seconds: {time.perf_counter() - t0:.1f}")
+
+    # ---- 16. the partitioned-program path: the dry run, real ranks ---------
+    torch.cuda.empty_cache()
+    partitioned = partitioned_phase(smi)
     multiprocess_paths = {
         "(a)": "xml_multiprocess_host", "(c) sync": "xml_multiprocess_device_sync",
         "(c) adaptive": "xml_multiprocess_device", "(d)": "xml_multiprocess_dense",
@@ -3508,6 +3618,11 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False) -> int:
             results["spmm_grad_w"]["launches_by_path"][path] = counts["spmm_grad_w"]
         results["weighted_merge"]["no_momentum_launches_by_path"][path] = counts[
             "weighted_merge_no_momentum"]
+    # phase 16 (b): every rank merges each leaf of its replica block
+    results["weighted_merge"]["launches_by_path"]["lm_partitioned"] = partitioned[
+        "weighted_merge"]
+    results["weighted_merge"]["no_momentum_launches_by_path"]["lm_partitioned"] = partitioned[
+        "weighted_merge"]
     for name in ("weighted_merge", "spmm", "spmm_grad_w"):
         launches[name] = sum(results[name]["launches_by_path"].values())
     results["spmm_grad_w"]["sort"]["launches"] = (
@@ -3538,4 +3653,5 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phase14-child":
         sys.exit(phase14_child(json.loads(sys.argv[2])))
     sys.exit(main(only_multiprocess=sys.argv[1:] == ["--only-multiprocess"],
-                  only_encdec=sys.argv[1:] == ["--only-encdec"]))
+                  only_encdec=sys.argv[1:] == ["--only-encdec"],
+                  only_partitioned=sys.argv[1:] == ["--only-partitioned"]))

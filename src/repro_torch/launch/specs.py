@@ -67,6 +67,15 @@ def decode_specs(cfg: ModelConfig, b: int, s: int, window: int = 0) -> dict:
     }
 
 
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``models.model.init`` as ``(shape, dtype)``
+    pairs, built under ``FakeTensorMode`` (no memory, any size)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return _spec_tree(MDL.init(cfg, torch.Generator()))
+
+
 def decode_window(cfg: ModelConfig, shape: InputShape) -> int:
     """long_500k on full-attention archs uses the sliding-window carve-in."""
     if shape.name != "long_500k":

@@ -4,8 +4,9 @@ softmax, the flash kernel, one-token decode), SwiGLU MLP, embeddings.
 Port of ``repro/models/layers.py``. Every layer is a plain function over a
 dict of tensors, with the reference's parameter names and layouts
 (attention (B, S, H, hd)), so weights carried over from the reference
-compare like with like. The reference's ``shard(...)`` annotations have no
-meaning on one card and are dropped.
+compare like with like. The reference's ``shard(...)`` annotations sit at
+its call sites (``sharding.annotate``): the identity on plain tensors, a
+redistribution of a DTensor under a sharding context.
 
 Attention paths (both grouped-query native: repeated KV heads are never
 materialized; q is reshaped to (B, S, Hkv, rep, hd) against the raw KV):
@@ -17,6 +18,14 @@ materialized; q is reshaped to (B, S, Hkv, rep, hd) against the raw KV):
 
 Cross-attention (the encoder-decoder family) always takes the blockwise
 path: the reference's cross call passes no ``use_flash``.
+
+Partitioned (DTensor inputs under a sharding context): the attention math
+runs on each rank's own batch rows and query heads as plain tensors
+(``_local_attention``), the heads sharded over the logical ``heads`` axis;
+the KV heads follow the query heads' grouping where they split evenly over
+that axis, and each rank takes the KV heads its query heads read where they
+do not (the replicated-KV groups of Megatron's GQA). The projections around
+it stay DTensor products.
 """
 from __future__ import annotations
 
@@ -26,6 +35,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.sharding.annotate import (
+    constrain,
+    gathered,
+    is_dtensor,
+    pin,
+    placements_for,
+    shard,
+)
 
 # --------------------------------------------------------------------------
 # init helpers
@@ -64,9 +81,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def _heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) x (D, H, hd) -> (B, S, H, hd), contiguous."""
+    """(B, S, D) x (D, H, hd) -> (B, S, H, hd), contiguous. A DTensor
+    product is laid out by whole heads first (sharded over the ``heads``
+    axis where H divides evenly, else whole), so the view splits no head."""
     d, n, hd = w.shape
-    return (h @ w.reshape(d, n * hd)).view(*h.shape[:-1], n, hd)
+    y = h @ pin(gathered(w, 1).reshape(d, n * hd))
+    if is_dtensor(y):
+        y = constrain(y, placements_for(y.device_mesh, "batch", None, "heads",
+                                        shape=(*y.shape[:-1], n)), grad_as_output=True)
+    return y.view(*h.shape[:-1], n, hd)
 
 
 def memory_kv(params: dict, memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -78,7 +101,7 @@ def memory_kv(params: dict, memory: torch.Tensor) -> tuple[torch.Tensor, torch.T
 def _merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) x (H, hd, D) -> (B, S, D)."""
     n, hd, d = w.shape
-    return o.reshape(*o.shape[:-2], n * hd) @ w.reshape(n * hd, d)
+    return pin(o.reshape(*o.shape[:-2], n * hd)) @ pin(gathered(w, 0).reshape(n * hd, d))
 
 
 # --------------------------------------------------------------------------
@@ -164,6 +187,68 @@ def blockwise_attention(
     return out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, hq, hd).to(q.dtype)
 
 
+def residual(out):
+    """A sublayer's output as the residual stream holds it: the identity on
+    plain tensors; under a context, a DTensor made whole on its feature
+    dim (the all-reduce after a row-parallel product) and sharded on its
+    batch dim by the rules. The reference anchors the stream once, on the
+    embedded input, and GSPMD carries that layout through; DTensor picks
+    each op's layout alone, and without this anchor would shard the stream
+    on its feature dim and gather weights instead."""
+    return shard(out, "replica", "batch", "seq", None)
+
+
+def _local_attention(core, q, k, v, **kwargs):
+    """``core(q, k, v, **kwargs)`` -> (B, Sq, Hq, hd); on DTensors, on
+    this rank's batch rows and query heads (module doc). ``kv_seq_mask``
+    (B, Skv) follows the batch rows."""
+    if not is_dtensor(q):
+        return core(q, k, v, **kwargs)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = q.device_mesh
+    hq, hkv = q.shape[2], k.shape[2]
+    q_pl = placements_for(mesh, "batch", None, "heads", None, shape=q.shape)
+    tp = [i for i, p in enumerate(q_pl) if p.is_shard() and p.dim == 2]
+    n_tp = 1
+    for i in tp:
+        n_tp *= mesh.size(i)
+    kv_split = hkv % n_tp == 0
+    kv_pl = q_pl if kv_split else [Replicate() if i in tp else p for i, p in enumerate(q_pl)]
+    q_l = q.redistribute(mesh, q_pl).to_local()
+    k_l = k.redistribute(mesh, kv_pl).to_local()
+    v_l = v.redistribute(mesh, kv_pl).to_local()
+    if not kv_split:  # the KV heads this rank's query heads read
+        r = 0
+        for i in tp:
+            r = r * mesh.size(i) + mesh.get_local_rank(i)
+        chunk = -(-hq // n_tp)
+        start, n_loc, rep = min(r * chunk, hq), q_l.shape[2], hq // hkv
+        if n_loc and (n_loc % rep == 0 or rep % n_loc == 0):
+            lo = start // rep
+            k_l = k_l[:, :, lo:(start + n_loc - 1) // rep + 1]
+            v_l = v_l[:, :, lo:(start + n_loc - 1) // rep + 1]
+        else:
+            idx = torch.arange(start, start + n_loc, device=k_l.device) // rep
+            k_l, v_l = k_l.index_select(2, idx), v_l.index_select(2, idx)
+    mask = kwargs.get("kv_seq_mask")
+    if is_dtensor(mask):
+        kwargs["kv_seq_mask"] = mask.redistribute(mesh, [
+            p if p.is_shard() and p.dim == 0 else Replicate() for p in q_pl]).to_local()
+    o = core(q_l, k_l, v_l, **kwargs).contiguous()
+    return DTensor.from_local(o, mesh, q_pl, run_check=False, shape=q.shape,
+                              stride=contiguous_stride(q.shape))
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
 def attention_layer(
     params: dict,
     x: torch.Tensor,
@@ -197,14 +282,15 @@ def attention_layer(
     else:
         k, v = cross_kv
         causal = False
+    q = shard(q, "replica", "batch", "seq", "heads", None)
     if use_flash and kv_seq_mask is None:
-        o = flash_attention(q, k, v, causal=causal, window=window)
+        o = _local_attention(flash_attention, q, k, v, causal=causal, window=window)
     else:
-        o = blockwise_attention(
-            q, k, v, causal=causal, window=window,
+        o = _local_attention(
+            blockwise_attention, q, k, v, causal=causal, window=window,
             q_chunk=q_chunk, kv_chunk=kv_chunk, kv_seq_mask=kv_seq_mask,
         )
-    return x + _merge_heads(o, params["wo"])
+    return x + residual(_merge_heads(o, params["wo"]))
 
 
 def decode_attention(
@@ -244,18 +330,31 @@ def decode_attention(
         slot = min(slot, s_cache - 1)  # dynamic_update_slice clamps its start
         cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
         cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    hq, hd = q.shape[2], q.shape[3]
+    # the reference's annotation of its grouped query (B, Hkv, rep, hd):
+    # batch-sharded, heads whole
+    q = shard(q, "batch", None, None, None)
+    n_valid = s_cache if cross else min(cur_len + 1, s_cache)
+    o = _local_attention(_decode_core, q, cache_k, cache_v, n_valid=n_valid)
+    return x + residual(_merge_heads(o.to(x.dtype), params["wo"])), cache_k, cache_v
+
+
+def _decode_core(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 n_valid: int) -> torch.Tensor:
+    """One query position (B, 1, Hq, hd) against the first ``n_valid``
+    entries of a (B, S, Hkv, hd) cache; returns (B, 1, Hq, hd) in q's
+    dtype."""
+    b, _, hq, hd = q.shape
+    s_cache, hkv = cache_k.shape[1], cache_k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, hd)                                # Sq == 1 folded out
     # f32 accumulation without casting the cache's storage dtype: bf16
     # products are exact in f32, as with the reference's preferred_element_type
     s = torch.einsum("bhrk,bshk->bhrs", qg.float(), cache_k.float()) * hd ** -0.5
-    if not cross:
-        valid = torch.arange(s_cache, device=x.device) < min(cur_len + 1, s_cache)
+    if n_valid < s_cache:
+        valid = torch.arange(s_cache, device=q.device) < n_valid
         s = torch.where(valid, s, float("-inf"))
     p = torch.softmax(s, dim=-1).to(cache_v.dtype)
     o = torch.einsum("bhrs,bshk->bhrk", p.float(), cache_v.float())
-    o = o.reshape(b, 1, hq, hd).to(x.dtype)
-    return x + _merge_heads(o, params["wo"]), cache_k, cache_v
+    return o.reshape(b, 1, hq, hd).to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -274,9 +373,10 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype):
 
 def mlp_layer(params: dict, x: torch.Tensor, norm_eps: float = 1e-5) -> torch.Tensor:
     h = rmsnorm(x, params["norm"], norm_eps)
-    g = F.silu(h @ params["wg"])
-    u = h @ params["wi"]
-    return x + (g * u) @ params["wo"]
+    g = F.silu(h @ gathered(params["wg"], 1))
+    u = h @ gathered(params["wi"], 1)
+    ff = shard(g * u, "replica", "batch", "seq", "ff")
+    return x + residual(ff @ gathered(params["wo"], 0))
 
 
 # --------------------------------------------------------------------------
@@ -289,11 +389,45 @@ def init_embedding(generator, vocab: int, d_model: int, dtype):
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(params["table"]):
+        return _embed_partitioned(params["table"], tokens)
     return params["table"][tokens]
 
 
+def vocab_range(mesh, placements, dim: int, size: int) -> tuple[list, int]:
+    """The mesh dims that shard tensor dim ``dim`` (of ``size``) and this
+    rank's first index along it (torch's chunking)."""
+    dims = [i for i, p in enumerate(placements) if p.is_shard() and p.dim == dim]
+    r, n = 0, 1
+    for i in dims:
+        r, n = r * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
+    return dims, min(r * -(-size // n), size)
+
+
+def _embed_partitioned(table, tokens):
+    """Vocab-parallel lookup (Megatron's): each rank looks up the tokens in
+    its own vocab range in its rows of the table, and the rows are summed
+    over the vocab shards; the table's other dims are gathered first."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    vocab, offset = vocab_range(mesh, table.placements, 0, table.shape[0])
+    t_pl = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    local = table.redistribute(mesh, t_pl).to_local()
+    b_pl = [Replicate() if i in vocab else p
+            for i, p in enumerate(placements_for(mesh, "batch", None, shape=tokens.shape))]
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    lt = tokens.redistribute(mesh, b_pl).to_local().long() - offset
+    ok = (lt >= 0) & (lt < local.shape[0])
+    rows = local[lt.clamp(0, max(local.shape[0] - 1, 0))]
+    rows = torch.where(ok[..., None], rows, 0.0).to(local.dtype)
+    partial = [Partial() if i in vocab else p for i, p in enumerate(b_pl)]
+    return DTensor.from_local(rows, mesh, partial, run_check=False).redistribute(mesh, b_pl)
+
+
 def unembed(params: dict, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
-    logits = x.float() @ params["table"].float().T
+    logits = x.float() @ gathered(params["table"], 0).float().T
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

@@ -8,6 +8,14 @@ kernel (``kernels/ssd_scan``).
 
 Layout: d_inner = expand * d_model, H = d_inner // head_dim heads,
 state size N, single B/C group (G=1, broadcast over heads).
+
+Under a sharding context (``sharding.annotate``) the in-projection's
+output is made whole on its feature dim before the split: ``in_proj`` is
+tensor-parallel over that dim, whose z / xBC / dt boundaries do not fall on
+shard boundaries. The reference leaves that resharding to GSPMD. The
+chunked scan then runs on each rank's own batch rows and heads as plain
+tensors (``_local_scan``), the heads sharded over the logical ``heads``
+axis.
 """
 from __future__ import annotations
 
@@ -17,8 +25,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.sharding.annotate import (
+    constrain,
+    gathered,
+    is_dtensor,
+    placements_for,
+    shard,
+)
 
-from .layers import ninit, rmsnorm
+from .layers import contiguous_stride, ninit, residual, rmsnorm
 
 
 def init_mamba2(
@@ -100,6 +115,64 @@ def ssd_chunked(
     return y, state
 
 
+def _local_scan(scan, x, dA, Bm, Cm, chunk: int):
+    """``scan(x, dA, Bm, Cm, chunk)``; on DTensors, on this rank's batch
+    rows and heads (module doc)."""
+    if not is_dtensor(x):
+        return scan(x, dA, Bm, Cm, chunk)
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = x.device_mesh
+    x_pl = placements_for(mesh, "batch", None, "heads", None, shape=x.shape)
+    a_pl = placements_for(mesh, "batch", None, "heads", shape=dA.shape)
+    s_pl = [Shard(1) if p.is_shard() and p.dim == 2 else p for p in x_pl]   # (B, H, P, N)
+    y, state = scan(x.redistribute(mesh, x_pl).to_local(), dA.redistribute(mesh, a_pl).to_local(),
+                    Bm.redistribute(mesh, x_pl).to_local(), Cm.redistribute(mesh, x_pl).to_local(),
+                    chunk)
+    b, _, h, p = x.shape
+    n = Bm.shape[-1]
+    return (DTensor.from_local(y.contiguous(), mesh, x_pl, run_check=False, shape=x.shape,
+                               stride=contiguous_stride(x.shape)),
+            DTensor.from_local(state.contiguous(), mesh, s_pl, run_check=False, shape=(b, h, p, n),
+                               stride=contiguous_stride((b, h, p, n))))
+
+
+def _ssm_step(state, xdt, da, bm, cm):
+    """One recurrence step: state (B,H,P,N) decayed by da (B,H) plus the
+    outer product of x*dt (B,H,P) and B (B,N); y (B,H,P) reads it with C
+    (B,N). Returns (new state, y)."""
+    bx = torch.einsum("bhp,bn->bhpn", xdt, bm.float())
+    new = state * da[..., None, None] + bx
+    return new, torch.einsum("bhpn,bn->bhp", new, cm.float())
+
+
+def _local_ssm_step(state, xdt, da, bm, cm):
+    """``_ssm_step``; on a DTensor state (sharded on its batch, head or head
+    dim by the serving specs), on this rank's part of it as plain tensors:
+    DTensor's einsum would flatten a sharded dim."""
+    if not is_dtensor(state):
+        return _ssm_step(state, xdt, da, bm, cm)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, pl = state.device_mesh, list(state.placements)
+    if any(p.is_shard() and p.dim == 3 for p in pl):
+        pl = [Replicate() if p.is_shard() and p.dim == 3 else p for p in pl]
+        state = state.redistribute(mesh, pl)
+
+    def on(x, dims):   # x's placements: the state's on ``dims``, whole elsewhere
+        want = [p if p.is_shard() and p.dim in dims else Replicate() for p in pl]
+        return x.redistribute(mesh, want).to_local()
+
+    new, y = _ssm_step(state.to_local(), on(xdt, (0, 1, 2)), on(da, (0, 1)), on(bm, (0,)),
+                       on(cm, (0,)))
+    b, h, p, n = state.shape
+    y_pl = [p_ if not (p_.is_shard() and p_.dim > 2) else Replicate() for p_ in pl]
+    return (DTensor.from_local(new, mesh, pl, run_check=False, shape=state.shape,
+                               stride=contiguous_stride(state.shape)),
+            DTensor.from_local(y.contiguous(), mesh, y_pl, run_check=False, shape=(b, h, p),
+                               stride=contiguous_stride((b, h, p))))
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d. xbc: (B, L, C); w: (K, C)."""
     k, l = w.shape[0], xbc.shape[1]
@@ -120,7 +193,7 @@ def mamba2_forward(
     """Pre-norm Mamba2 block: x + ssd(norm(x)). x: (B, L, D)."""
     b, l, _ = x.shape
     h_in = rmsnorm(x, params["norm"], norm_eps)
-    zxbcdt = h_in @ params["in_proj"]
+    zxbcdt = shard(h_in @ gathered(params["in_proj"], 1), "replica", "batch", "seq", None)
     n_heads = params["A_log"].shape[0]
     d_inner = n_heads * head_dim
     z, xbc, dt = zxbcdt.split([d_inner, d_inner + 2 * state, n_heads], dim=-1)
@@ -140,11 +213,11 @@ def mamba2_forward(
     bm = bm[:, :, None, :].expand(b, lp, n_heads, state)
     cm = cm[:, :, None, :].expand(b, lp, n_heads, state)
     scan = ssd_ops.ssd_scan if use_kernel else ssd_chunked
-    y, _ = scan(xs.float() * dt[..., None], dt * a, bm, cm, chunk)
+    y, _ = _local_scan(scan, xs.float() * dt[..., None], dt * a, bm, cm, chunk)
     y = y[:, :l] + params["D"][None, None, :, None] * xs[:, :l].float()
     y = y.reshape(b, l, d_inner).to(x.dtype)
     y = rmsnorm(y, params["gate_norm"], norm_eps) * F.silu(z)
-    return x + y @ params["out_proj"]
+    return x + residual(y @ gathered(params["out_proj"], 0))
 
 
 # --------------------------------------------------------------------------
@@ -178,7 +251,7 @@ def mamba2_decode_step(
     n_heads = params["A_log"].shape[0]
     d_inner = n_heads * head_dim
     h_in = rmsnorm(x, params["norm"], norm_eps)
-    zxbcdt = (h_in @ params["in_proj"])[:, 0]                           # (B, E)
+    zxbcdt = shard((h_in @ gathered(params["in_proj"], 1))[:, 0], "batch", None)  # (B, E)
     z, xbc, dt = zxbcdt.split([d_inner, d_inner + 2 * state, n_heads], dim=-1)
 
     # rolling conv buffer
@@ -189,13 +262,13 @@ def mamba2_decode_step(
     xs = xs.reshape(b, n_heads, head_dim).float()
     dt = F.softplus(dt.float() + params["dt_bias"])                     # (B,H)
     da = torch.exp(dt * -torch.exp(params["A_log"]))                    # (B,H)
-    bx = torch.einsum("bhp,bn->bhpn", xs * dt[..., None], bm.float())
-    new_ssm = cache["ssm"] * da[..., None, None] + bx
-    y = torch.einsum("bhpn,bn->bhp", new_ssm, cm.float())
+    new_ssm, y = _local_ssm_step(cache["ssm"], xs * dt[..., None], da, bm, cm)
     y = y + params["D"][None, :, None] * xs
+    if is_dtensor(y):  # whole heads and head dims before they are flattened
+        y = constrain(y, placements_for(y.device_mesh, "batch", None, None, shape=y.shape))
     y = y.reshape(b, d_inner).to(x.dtype)
     y = rmsnorm(y, params["gate_norm"], norm_eps) * F.silu(z)
-    out = x + (y @ params["out_proj"])[:, None, :]
+    out = x + residual((y @ gathered(params["out_proj"], 0))[:, None, :])
     cache["conv"].copy_(conv_in[:, 1:])
     cache["ssm"].copy_(new_ssm)
     return out, cache

@@ -48,6 +48,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.protocol import TrainableModel
+from repro_torch.sharding.annotate import constrain, gathered, is_dtensor, placements_for, shard
 from repro_torch.utils import tree as tu
 
 from . import layers as L
@@ -285,7 +286,7 @@ def _run_encoder(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.
     (``frames`` cast to the model's dtype first): per layer non-causal
     self-attention and the MLP, each layer under activation checkpointing
     when ``cfg.remat`` is on and autograd records; then the encoder norm."""
-    x = frames.to(_dtype(cfg)) @ params["frontend_proj"]
+    x = frames.to(_dtype(cfg)) @ gathered(params["frontend_proj"], 1)
     enc = params["encoder"]
 
     def body(x, lp):
@@ -314,6 +315,7 @@ def _trunk(cfg: ModelConfig, params: dict, x: torch.Tensor,
     def cross(i):
         return None if cross_all is None else (cross_all[i], memory)
 
+    x = L.residual(x)
     aux_total = torch.zeros((), device=x.device)
     for i in range(prefix):
         x, aux = apply_sublayers(cfg, *pattern[i], params["prefix"][i], x, cross(i))
@@ -340,7 +342,7 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
     model's dtype first), not text, and the loss skips them."""
     tok = L.embed(params["embed"], batch["tokens"])
     if cfg.frontend == "vision":
-        vis = batch["patch_embeds"].to(tok.dtype) @ params["frontend_proj"]
+        vis = batch["patch_embeds"].to(tok.dtype) @ gathered(params["frontend_proj"], 1)
         return torch.cat([vis, tok], dim=1), vis.shape[1]
     return tok, 0
 
@@ -355,10 +357,63 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return L.unembed(params["embed"], x, cfg.logits_softcap)
-    logits = x.float() @ params["lm_head"].float().T
+    logits = x.float() @ gathered(params["lm_head"], 0).float().T
     if cfg.logits_softcap > 0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     return logits
+
+
+def _target_logp(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """log_softmax(logits)[..., tgt]. For a DTensor whose vocab dim is
+    sharded, vocab-parallel (Megatron's cross entropy): the log-sum-exp
+    from ``amax`` and a sum over the shards, and each rank picks the
+    targets in its own vocab range from its local shard, the picks summed
+    over the shards; gathering the vocab dim would move the whole logits."""
+    if not is_dtensor(logits):
+        logp = torch.log_softmax(logits, dim=-1)
+        return logp.gather(-1, tgt[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    top = logits.amax(dim=-1, keepdim=True).detach()
+    lse = top + (logits - top).exp().sum(dim=-1, keepdim=True).log()
+    logp = logits - lse
+    mesh, v = logits.device_mesh, logits.shape[-1]
+    vocab = [i for i, p in enumerate(logp.placements) if p.is_shard() and p.dim == logp.ndim - 1]
+    if not vocab:  # a whole vocab a rank: gather locally (DTensor's gather would mask)
+        rows = placements_for(mesh, "batch", None, None, shape=logp.shape)
+        logp = constrain(logp, rows)
+        if not is_dtensor(tgt):
+            tgt = DTensor.from_local(tgt, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        tgt = constrain(tgt, rows)
+        return DTensor.from_local(
+            logp.to_local().gather(-1, tgt.to_local().unsqueeze(-1)).squeeze(-1), mesh, rows,
+            run_check=False)
+    pl = [Replicate() if i in vocab else p for i, p in enumerate(logp.placements)]
+    local = logp.to_local()
+    t_local = (tgt.redistribute(mesh, pl) if is_dtensor(tgt)
+               else DTensor.from_local(tgt, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False).redistribute(mesh, pl)).to_local()
+    _, offset = L.vocab_range(mesh, logp.placements, logp.ndim - 1, v)
+    lt = t_local - offset
+    ok = (lt >= 0) & (lt < local.shape[-1])
+    picked = local.gather(-1, lt.clamp(0, max(local.shape[-1] - 1, 0))[..., None])[..., 0]
+    picked = torch.where(ok, picked, 0.0)
+    partial = [Partial() if i in vocab else p for i, p in enumerate(pl)]
+    return DTensor.from_local(picked, mesh, partial, run_check=False).redistribute(mesh, pl)
+
+
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    """``argmax`` over the last dim. For a DTensor, whose vocab dim may be
+    sharded, the first index of the maximum from ``amax`` and ``amin``
+    (equal to ``argmax`` for finite logits): DTensor's own ``argmax``
+    reads a shard's offset as a data-dependent value, which fake tensors
+    cannot give."""
+    if not is_dtensor(logits):
+        return logits.argmax(-1)
+    v = logits.shape[-1]
+    top = logits.amax(dim=-1, keepdim=True)
+    idx = torch.arange(v, device=logits.device)
+    return torch.where(logits == top, idx, v).amin(dim=-1)
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
@@ -369,17 +424,17 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     samples), moe_aux and ce_loss."""
     memory = _memory(cfg, params, batch)
     x, n_vis = _embed_inputs(cfg, params, batch)
+    x = shard(x, "replica", "batch", "seq", None)
     x, moe_aux = _trunk(cfg, params, x, memory)
     if n_vis:
         x = x[:, n_vis:]
     logits = _logits(cfg, params, x)
-    logp = torch.log_softmax(logits, dim=-1)
     tgt = batch["targets"].long()
-    nll = -logp.gather(-1, tgt[..., None])[..., 0]                       # (B, S)
+    nll = -_target_logp(logits, tgt)                                     # (B, S)
     smask = batch["sample_mask"].float()[:, None]
     n_valid = smask.sum() * tgt.shape[1]
     loss = (nll * smask).sum() / n_valid.clamp_min(1.0)
-    acc = ((logits.argmax(-1) == tgt) * smask).sum() / n_valid.clamp_min(1.0)
+    acc = ((_argmax(logits) == tgt) * smask).sum() / n_valid.clamp_min(1.0)
     total = loss + cfg.router_aux_coef * moe_aux
     return total, {"accuracy": acc, "n_valid": smask.sum(), "moe_aux": moe_aux,
                    "ce_loss": loss}
@@ -492,7 +547,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tenso
             return None
         return params["cross"][i], cache["cross_kv"][i]
 
-    x = L.embed(params["embed"], tokens)
+    x = L.residual(L.embed(params["embed"], tokens))
     for i in range(prefix):
         x = _decode_sublayers(cfg, *pattern[i], params["prefix"][i], x,
                               cache["prefix"][i], cur, window, cross(i))

@@ -17,6 +17,21 @@ result on the card as on the CPU, in a fixed order:
   * combine: the reference scatter-adds each token's ``top_k``
     contributions in sorted order (ascending expert id); the port gathers
     them into that order and adds them one by one.
+
+Every shape here is static (no ``bincount``, no boolean-mask indexing), so
+the layer also traces under ``FakeTensorMode`` (the dry run): the counts
+are ``index_add_`` of ones into a zero vector, and the overflow rows go to
+a spare row of the buffer, which is dropped.
+
+Partitioned (a ``DTensor`` input, under a sharding context): the routing,
+the sort and the combine run on each rank's own tokens as plain tensors,
+and only the (E, C, D) buffers are DTensors, experts sharded over the
+logical ``experts`` axis. With ``dispatch="sharded"`` the group count is
+the expert axis's extent (``logical_axis_size``), as in the reference;
+where the tokens are sharded over that same axis, each rank's tokens are
+one group, dispatched locally, and the (G, E) -> (E, G) reshard of the
+buffer is the expert-parallel all-to-all. Otherwise every rank gathers all
+tokens and dispatches them alike.
 """
 from __future__ import annotations
 
@@ -24,8 +39,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_gmm.ops import moe_ffn_gmm
+from repro_torch.sharding.annotate import (
+    constrain,
+    gathered,
+    is_dtensor,
+    logical_axis_size,
+    placements_for,
+    shard,
+)
 
-from .layers import ninit, rmsnorm
+from .layers import ninit, residual, rmsnorm
 
 
 def init_moe(
@@ -52,6 +75,13 @@ def init_moe(
     return p
 
 
+def _counts(ids: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in ``ids``, in ``dtype``: a static-
+    shape ``bincount`` (sums of ones, so the same values)."""
+    return torch.zeros((n,), dtype=dtype, device=ids.device).index_add_(
+        0, ids, torch.ones(ids.shape, dtype=dtype, device=ids.device))
+
+
 def _dispatch_indices(expert_ids: torch.Tensor, n_experts: int, capacity: int):
     """Sort-based slot assignment.
 
@@ -62,7 +92,7 @@ def _dispatch_indices(expert_ids: torch.Tensor, n_experts: int, capacity: int):
     tk = expert_ids.shape[0]
     sort_idx = torch.argsort(expert_ids, stable=True)
     sorted_eids = expert_ids[sort_idx]
-    counts = torch.bincount(expert_ids, minlength=n_experts)
+    counts = _counts(expert_ids, n_experts, expert_ids.dtype)
     starts = counts.cumsum(0) - counts  # first sorted position of each expert
     pos_in_expert = torch.arange(tk, device=expert_ids.device) - starts[sorted_eids]
     keep = pos_in_expert < capacity
@@ -76,9 +106,14 @@ def _dispatch_group(h_g: torch.Tensor, ids_g: torch.Tensor, n_experts: int, capa
     top_k, d = ids_g.shape[-1], h_g.shape[-1]
     sort_idx, slots, keep = _dispatch_indices(ids_g.reshape(-1), n_experts, capacity)
     token_of = sort_idx // top_k
-    buf = torch.zeros((n_experts * capacity, d), dtype=h_g.dtype, device=h_g.device)
-    buf[slots[keep]] = h_g[token_of[keep]]
-    buf[slots[~keep]] = 0  # overflow clears slot capacity-1 (see module doc)
+    n = n_experts * capacity
+    # kept rows to their (distinct) slots, overflow rows to a spare row n
+    buf = torch.zeros((n + 1, d), dtype=h_g.dtype, device=h_g.device)
+    buf.index_copy_(0, torch.where(keep, slots, n), h_g[token_of])
+    # overflow clears slot capacity-1 (see module doc)
+    over = torch.zeros((n + 1,), dtype=torch.bool, device=h_g.device)
+    over.index_fill_(0, torch.where(keep, n, slots), True)
+    buf = torch.where(over[:n, None], 0, buf[:n])
     return buf.view(n_experts, capacity, d), (sort_idx, slots, keep)
 
 
@@ -107,9 +142,21 @@ def _expert_ffn(params: dict, buf: torch.Tensor, use_gmm_kernel: bool) -> torch.
     """Grouped SwiGLU over (E, C, D) capacity buffers."""
     if use_gmm_kernel:
         return moe_ffn_gmm(buf, params["wi"], params["wg"], params["wo"])
-    g = F.silu(torch.bmm(buf, params["wg"]))
-    u = torch.bmm(buf, params["wi"])
-    return torch.bmm(g * u, params["wo"])
+    wi, wg, wo = (gathered(params["wi"], 0, 2), gathered(params["wg"], 0, 2),
+                  gathered(params["wo"], 0, 1))
+    if is_dtensor(buf):
+        # the buffer takes the weights' layout: experts split where the
+        # weights split them, whole where the weights split their hidden
+        # dim, so every product has one layout (DTensor would otherwise
+        # weigh moving the buffer against moving the weights, and switch
+        # with the capacity)
+        from torch.distributed.tensor import Replicate, Shard
+
+        buf = constrain(buf, [Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
+                              for p in wi.placements])
+    g = F.silu(torch.bmm(buf, wg))
+    u = torch.bmm(buf, wi)
+    return torch.bmm(g * u, wo)
 
 
 def _route(params: dict, h: torch.Tensor, top_k: int):
@@ -145,27 +192,51 @@ def moe_ffn(
     b, s, d = x.shape
     e = params["router"].shape[1]
     t = b * s
-    h = x.reshape(t, d)
-    probs, top_w, top_ids = _route(params, h, top_k)
-
-    # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
-    pe = probs.mean(dim=0)
-    fe = torch.bincount(top_ids.reshape(-1), minlength=e).float() / (t * top_k)
-    aux = e * (pe * fe).sum()
-
     groups = 1
     if dispatch == "sharded":
-        groups = force_groups if force_groups else 1
+        groups = force_groups if force_groups else logical_axis_size("experts")
         if t % groups or b % groups:
             groups = 1  # fall back (e.g. tiny smoke shapes)
 
     capacity = int(max(top_k, round(t // groups * top_k * capacity_factor / e)))
     acc_dt = torch.float32 if combine_dtype == "f32" else torch.bfloat16
+    if is_dtensor(x):
+        return _moe_ffn_partitioned(params, x, top_k=top_k, groups=groups, capacity=capacity,
+                                    acc_dt=acc_dt, use_gmm_kernel=use_gmm_kernel)
+
+    h = x.reshape(t, d)
+    probs, top_w, top_ids = _route(params, h, top_k)
+
+    # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
+    pe = probs.mean(dim=0)
+    fe = _counts(top_ids.reshape(-1), e, torch.float32) / (t * top_k)
+    aux = e * (pe * fe).sum()
+    y = _dispatch_ffn_combine(params, h, top_ids, top_w, groups, capacity, acc_dt,
+                              use_gmm_kernel)
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _dispatch_ffn_combine(params: dict, h: torch.Tensor, top_ids: torch.Tensor,
+                          top_w: torch.Tensor, groups: int, capacity: int,
+                          acc_dt: torch.dtype, use_gmm_kernel: bool,
+                          wrap=None) -> torch.Tensor:
+    """Dispatch the tokens h (T, D) in ``groups`` groups, run the experts,
+    combine: (T, D) in ``acc_dt``. ``wrap`` (the partitioned path) turns
+    the whole (E, G*C, D) buffer into a DTensor before the experts and
+    returns the experts' output as a plain tensor again."""
+    t, d = h.shape
+    e = params["router"].shape[1]
+    top_k = top_ids.shape[-1]
+
+    def ffn(buf):
+        if wrap is None:
+            return _expert_ffn(params, buf, use_gmm_kernel)
+        return wrap(buf)
 
     if groups == 1:
         buf, meta = _dispatch_group(h, top_ids, e, capacity)
-        out_buf = _expert_ffn(params, buf, use_gmm_kernel)
-        y = _combine_group(out_buf, meta, top_ids, top_w, acc_dt)
+        out_buf = ffn(buf)
+        return _combine_group(out_buf, meta, top_ids, top_w, acc_dt)
     else:
         tg = t // groups
         h_g = h.reshape(groups, tg, d)
@@ -175,11 +246,76 @@ def moe_ffn(
         buf_g = torch.stack([buf for buf, _ in parts])                  # (G,E,C,D)
         # (G, E, C, D) -> (E, G*C, D)
         buf = buf_g.transpose(0, 1).reshape(e, groups * capacity, d)
-        out_buf = _expert_ffn(params, buf, use_gmm_kernel)
+        out_buf = ffn(buf)
         ob_g = out_buf.reshape(e, groups, capacity, d).transpose(0, 1)  # (G,E,C,D)
-        y = torch.cat([_combine_group(ob_g[g], parts[g][1], ids_g[g], w_g[g], acc_dt)
-                       for g in range(groups)])
-    return y.reshape(b, s, d).to(x.dtype), aux
+        return torch.cat([_combine_group(ob_g[g], parts[g][1], ids_g[g], w_g[g], acc_dt)
+                          for g in range(groups)])
+
+
+def _moe_ffn_partitioned(params: dict, x, *, top_k: int, groups: int, capacity: int,
+                         acc_dt: torch.dtype, use_gmm_kernel: bool):
+    """``moe_ffn`` on a DTensor x (B, S, D) (module doc): routing, sort and
+    combine on this rank's tokens, the experts over DTensor buffers."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if use_gmm_kernel:
+        raise NotImplementedError("the partitioned MoE runs the experts as DTensor products; "
+                                  "use_gmm_kernel is for one device")
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+    t = b * s
+    batch_pl = placements_for(mesh, "batch", None, None, shape=x.shape)
+    bdims = [i for i, p in enumerate(batch_pl) if isinstance(p, Shard)]
+    edims = [i for i, p in enumerate(placements_for(mesh, "experts", None, None,
+                                                    shape=(e, 1, 1)))
+             if isinstance(p, Shard)]
+    n_shards = 1
+    for i in bdims:
+        n_shards *= mesh.size(i)
+    local_groups = groups > 1 and groups == n_shards and bdims == edims
+    if not local_groups:  # every rank dispatches all tokens
+        batch_pl, bdims = [Replicate()] * mesh.ndim, []
+    x_pl = x.redistribute(mesh, batch_pl)
+    h = x_pl.to_local().reshape(-1, d)
+    router = params["router"]
+    if is_dtensor(router):
+        router = router.full_tensor()
+    probs, top_w, top_ids = _route({"router": router}, h, top_k)
+    fe_cnt = _counts(top_ids.reshape(-1), e, torch.float32)
+    if bdims:  # the token means, completed over the batch shards
+        partial = [Partial() if i in bdims else Replicate() for i in range(mesh.ndim)]
+        pe = DTensor.from_local(probs.sum(dim=0), mesh, partial, run_check=False).full_tensor() / t
+        fe = DTensor.from_local(fe_cnt, mesh, partial, run_check=False).full_tensor()
+    else:
+        pe, fe = probs.mean(dim=0), fe_cnt
+    # a DTensor, so that the loss's gradient reaches it as one
+    aux = DTensor.from_local(e * (pe * fe / (t * top_k)).sum(), mesh,
+                             [Replicate()] * mesh.ndim, run_check=False)
+
+    def experts(buf):
+        return shard(_expert_ffn(params, buf, False), "experts", None, None)
+
+    if local_groups:
+        buf, meta = _dispatch_group(h, top_ids, e, capacity)            # this rank's group
+        g_pl = [Shard(0) if i in bdims else Replicate() for i in range(mesh.ndim)]
+        buf_g = DTensor.from_local(buf[None], mesh, g_pl, run_check=False)  # (G,E,C,D)
+        buf_g = shard(buf_g, "experts", None, None, None)   # G-dim local to shard
+        # (G, E, C, D) -> (E, G*C, D): the expert-parallel all-to-all
+        buf_e = shard(buf_g.transpose(0, 1), "experts", None, None, None)
+        out = experts(buf_e.reshape(e, groups * capacity, d))
+        # back: (E, G*C, D) -> (G, E, C, D), the reverse all-to-all
+        ob_g = out.reshape(e, groups, capacity, d).transpose(0, 1).redistribute(mesh, g_pl)
+        y = _combine_group(ob_g.to_local()[0], meta, top_ids, top_w, acc_dt)
+    else:
+        def wrap(buf):
+            buf = DTensor.from_local(buf, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            return experts(buf).full_tensor()
+
+        y = _dispatch_ffn_combine(params, h, top_ids, top_w, groups, capacity, acc_dt,
+                                  False, wrap=wrap)
+    y = DTensor.from_local(y.reshape(-1, s, d).to(x.dtype), mesh, batch_pl, run_check=False)
+    return y, aux
 
 
 def moe_ffn_gather(
@@ -190,7 +326,17 @@ def moe_ffn_gather(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode-time MoE FFN: gather the k routed experts' weights per token
     and compute densely (weight reads T*k*(3*D*F) instead of E*(3*D*F);
-    only sensible when T*k < E)."""
+    only sensible when T*k < E). On a DTensor (a perf experiment's flag on
+    the partitioned path) every rank first gathers the tokens and every
+    expert's weights whole."""
+    if is_dtensor(x):  # every rank gathers the tokens and the experts' weights whole
+        from torch.distributed.tensor import DTensor, Replicate
+
+        full = {k: params[k].full_tensor() if is_dtensor(params[k]) else params[k]
+                for k in ("router", "wi", "wg", "wo")}
+        y, aux = moe_ffn_gather(full, x.full_tensor(), top_k=top_k)
+        return (DTensor.from_local(y, x.device_mesh, [Replicate()] * x.device_mesh.ndim,
+                                   run_check=False), aux)
     b, s, d = x.shape
     h = x.reshape(b * s, d)
     _, top_w, top_ids = _route(params, h, top_k)
@@ -226,7 +372,7 @@ def moe_layer(
         )
     if "dense" in params:
         dp = params["dense"]
-        g = F.silu(h @ dp["wg"])
-        u = h @ dp["wi"]
-        out = out + (g * u) @ dp["wo"]
-    return x + out, aux
+        g = F.silu(h @ gathered(dp["wg"], 1))
+        u = h @ gathered(dp["wi"], 1)
+        out = out + (g * u) @ gathered(dp["wo"], 0)
+    return x + residual(out), aux

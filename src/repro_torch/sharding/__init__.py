@@ -1,3 +1,4 @@
-"""The replica mesh of the sharded placement: its rules (``rules``) and
-the per-shard worker threads whose rendezvous are its collectives
-(``executor``)."""
+"""Sharding: the replica mesh of the sharded placement and the partition
+specs of the partitioned program (``rules``), the per-shard worker threads
+whose rendezvous are the sharded placement's collectives (``executor``),
+and the logical-axis annotations of the model code (``annotate``)."""

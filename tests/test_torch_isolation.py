@@ -49,6 +49,11 @@ SHARDED_MODULES = ("repro_torch.sharding.rules", "repro_torch.sharding.executor"
                    "repro_torch.core.algorithms.base")
 # multi-process training: the bootstrap and exchange, and the spawner
 MULTIHOST_MODULES = ("repro_torch.launch.multihost", "repro_torch.launch.multihost_launch")
+# the partitioned program: annotations, steps over a mesh, the dry run and
+# its cost analysis, the real-rank check
+PARTITIONED_MODULES = ("repro_torch.sharding.annotate", "repro_torch.launch.steps",
+                       "repro_torch.launch.cost_analysis", "repro_torch.launch.dryrun",
+                       "repro_torch.launch.partitioned")
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -60,7 +65,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     n_modules, bad, names, n_loaded = int(out[0]), out[1], out[2].split(","), int(out[3])
     assert n_modules >= 25, n_modules   # the walk really saw the package
     for module in (ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES + SHARDED_MODULES
-                   + MULTIHOST_MODULES):
+                   + MULTIHOST_MODULES + PARTITIONED_MODULES):
         assert module in names, module
     assert bad == "", f"the port imported {bad}"
     assert n_loaded == 0                # nothing was built or loaded
@@ -89,7 +94,7 @@ def test_serve_launcher_without_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize("module",
                          ELASTIC_MODULES + OVERLAP_MODULES + HOST_MODULES + SHARDED_MODULES
-                         + MULTIHOST_MODULES)
+                         + MULTIHOST_MODULES + PARTITIONED_MODULES)
 def test_elastic_module_alone_loads_no_jax_and_no_reference(module):
     """Each elastic-membership, staging, host, sharded-placement and
     multi-process module imported on its own, in a fresh interpreter: nothing of JAX or of the
@@ -101,6 +106,17 @@ def test_elastic_module_alone_loads_no_jax_and_no_reference(module):
     out = subprocess.run([sys.executable, "-c", probe], env=env, capture_output=True,
                          text=True, timeout=120, check=True).stdout.strip()
     assert out == "", f"{module} imported {out}"
+
+
+def test_partitioned_check_without_device_needs_cuda(monkeypatch, tmp_path):
+    """The real-rank check of the partitioned steps runs its ranks on the
+    cards unless asked for the CPU: without one it raises, starting none."""
+    from repro_torch.launch import partitioned
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        partitioned.main(["--out", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
 
 
 def test_launcher_without_device_needs_cuda_with_elastic_flags(monkeypatch, tmp_path):
