@@ -1,0 +1,6 @@
+"""peak_mem_gib: ``torch.cuda.max_memory_allocated`` over the window, on
+the fullest of the cell's cards, in GiB."""
+
+
+def read(run):
+    return None if run.peak_bytes is None else run.peak_bytes / 2**30

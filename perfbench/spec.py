@@ -1,0 +1,59 @@
+"""Finds everything by the names in ``BENCHMARK.json``: a cell's entry, its
+configuration (``perfbench/configs/<config>.json``), its traffic mix
+(``perfbench/traffic/<traffic>.json``), its correctness limits
+(``perfbench/limits/<cell>.json``) and the readers of the metrics it
+reports (``perfbench/metrics/<metric>.py``). A later cell, configuration or
+metric is a new file and a new entry; no code changes."""
+from __future__ import annotations
+
+import importlib.util
+import json
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def benchmark(root: Path = ROOT) -> dict:
+    return _json(root / "BENCHMARK.json")
+
+
+def cell(name: str, root: Path = ROOT) -> dict:
+    """The cell's ``workloads`` entry, with its configuration, traffic and
+    limits loaded under ``config_data``, ``traffic_data`` and ``limits``."""
+    bench = benchmark(root)
+    entry = next((w for w in bench["workloads"] if w["name"] == name), None)
+    if entry is None:
+        known = ", ".join(w["name"] for w in bench["workloads"])
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json; known: {known}")
+    configs = {c["name"]: c for c in bench["configs"]}
+    base = root / "perfbench"
+    return dict(
+        entry,
+        config_data=_json(root / configs[entry["config"]]["file"]),
+        traffic_data=_json(base / "traffic" / f"{entry['traffic']}.json"),
+        limits=_json(base / "limits" / f"{name}.json"),
+    )
+
+
+def metrics(name: str, trace: bool, root: Path = ROOT) -> list:
+    """The metric entries the cell reports: its end-to-end metrics without
+    tracing, its per-layer metrics with; an entry with ``workloads`` only
+    in those cells."""
+    bench = benchmark(root)
+    return [m for m in bench["per_layer" if trace else "end_to_end"]
+            if name in m.get("workloads", [name])]
+
+
+def reader(metric: str, root: Path = ROOT):
+    """The ``read(run)`` function of ``perfbench/metrics/<metric>.py``."""
+    path = root / "perfbench" / "metrics" / f"{metric}.py"
+    module_spec = importlib.util.spec_from_file_location(
+        "perfbench_metric_" + metric.replace(".", "_"), path)
+    module = importlib.util.module_from_spec(module_spec)
+    module_spec.loader.exec_module(module)
+    return module.read
