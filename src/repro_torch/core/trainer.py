@@ -159,6 +159,7 @@ from repro_torch.models.protocol import TrainableModel
 from repro_torch.optim.sgd import SGDConfig, init_momentum, sgd_update
 from repro_torch.sharding.executor import ShardExecutor
 from repro_torch.sharding.rules import REPLICA_AXIS, ReplicaMeshPool, mesh_devices, replica_block
+from repro_torch.utils import trace
 from repro_torch.utils import tree as tu
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import MetricsLog, log
@@ -486,10 +487,16 @@ class ElasticTrainer:
 
     def _replicated(self, tree: Optional[dict]) -> dict:
         """``tree`` (no replica dim) on every device of the mesh: one copy a
-        distinct device, keyed by device (the tree itself on its own)."""
+        distinct device, keyed by device (the tree itself on its own). The
+        bytes copied between devices count as the open span's
+        ``copy_bytes``."""
         if tree is None:
             return {}
         devices = dict.fromkeys(self.mesh if self._sharded else (self.device,))
+        moved = sum(l.numel() * l.element_size() for d in devices for l in tree.values()
+                    if l.device != d)
+        if moved:
+            trace.add("copy_bytes", moved)
         return {d: tu.tree_map(lambda l, d=d: l.to(d), tree) for d in devices}
 
     def _whole(self, tree):
@@ -613,18 +620,19 @@ class ElasticTrainer:
     def replica_norms(self, replicas) -> np.ndarray:
         """(R,) per-replica L2 norms on the host (feeds Alg. 2's
         perturbation condition); per shard under sharded."""
-        outs = self._shards(lambda s, b: tu.tree_l2_norm_per_replica(b), replicas)
-        local = np.concatenate([o.cpu().numpy() for o in outs])
-        if self._span is None:
-            return local
-        # the norms are per replica (no cross-replica sum): a gather
-        # reassembles the global vector; a dead peer's rows read 0, its
-        # merge weight is redistributed at the merge anyway
-        out = np.zeros(self.cfg.n_replicas, local.dtype)
-        for pid, arr in self._span.allgather("norms", local).items():
-            plo, phi = self._span.bounds_of(pid)
-            out[plo:phi] = arr
-        return out
+        with trace.span("trainer.merge.norms"):
+            outs = self._shards(lambda s, b: tu.tree_l2_norm_per_replica(b), replicas)
+            local = np.concatenate([o.cpu().numpy() for o in outs])
+            if self._span is None:
+                return local
+            # the norms are per replica (no cross-replica sum): a gather
+            # reassembles the global vector; a dead peer's rows read 0, its
+            # merge weight is redistributed at the merge anyway
+            out = np.zeros(self.cfg.n_replicas, local.dtype)
+            for pid, arr in self._span.allgather("norms", local).items():
+                plo, phi = self._span.bounds_of(pid)
+                out[plo:phi] = arr
+            return out
 
     def apply_replicas(self, fn, replicas):
         """``fn(replicas, axis) -> (replica tree, extra)`` over the whole
@@ -915,7 +923,8 @@ class ElasticTrainer:
             live = bool(tu.replica_all_max(live, self._axis))
         return live
 
-    def _dispatch_rounds(self, state: ElasticState, shards: list, mask_host: np.ndarray):
+    def _dispatch_rounds(self, state: ElasticState, shards: list, mask_host: np.ndarray,
+                         live_rows: int):
         """Issue every round of a stacked plan on every shard; returns
         ``(replicas, momentum, stats)`` with ``stats`` the (n_rounds, 4)
         device tensor of per-round (loss, accuracy, samples, live), reduced
@@ -925,43 +934,54 @@ class ElasticTrainer:
         host sync. Under sharded each shard marks its window for a measured
         speed model (``ShardWindowTimer``) around its rounds, and the
         per-round metric sums are summed over the shards before the
-        normalization (the reference's psum in the scan)."""
+        normalization (the reference's psum in the scan). The span counts
+        the rows the rounds compute and, of them, the ``live_rows`` that
+        hold a sample (``_live_rows``)."""
         timer = self._shard_timer
 
         def one(s, replicas, momentum):
-            batches, mask, lr = shards[s]
-            local = mask_host[:, self._rows(s)]
-            stream = torch.cuda.current_stream(mask.device) if mask.is_cuda else None
-            if timer is not None:
-                timer.mark_start(s, stream)
-            sums = []
-            for r in range(len(local)):
-                m = mask[r]
-                replicas, momentum, loss, aux = self._round(
-                    replicas, momentum, {k: v[r] for k, v in batches.items()}, lr, m,
-                    live=self._live(local[r]),
+            with trace.span("trainer.dispatch.shard", shard=s):
+                batches, mask, lr = shards[s]
+                local = mask_host[:, self._rows(s)]
+                stream = torch.cuda.current_stream(mask.device) if mask.is_cuda else None
+                if timer is not None:
+                    timer.mark_start(s, stream)
+                sums = []
+                for r in range(len(local)):
+                    m = mask[r]
+                    replicas, momentum, loss, aux = self._round(
+                        replicas, momentum, {k: v[r] for k, v in batches.items()}, lr, m,
+                        live=self._live(local[r]),
+                    )
+                    sums.append(torch.stack([
+                        (loss * m).sum(),
+                        (aux["accuracy"] * m).sum(),
+                        (aux["n_valid"] * m).sum(),
+                        m.sum(),
+                    ]))
+                if timer is not None:
+                    timer.mark_end(s, stream)
+                sums = tu.replica_all_sum(torch.stack(sums), self._axis)
+                if self._span is not None and self._span.spanning == "host":
+                    return replicas, momentum, sums   # the exchange completes them
+                denom = sums[:, 3].clamp_min(1.0)
+                stats = torch.stack(
+                    [sums[:, 0] / denom, sums[:, 1] / denom, sums[:, 2],
+                     (sums[:, 3] > 0).float()],
+                    dim=1,
                 )
-                sums.append(torch.stack([
-                    (loss * m).sum(),
-                    (aux["accuracy"] * m).sum(),
-                    (aux["n_valid"] * m).sum(),
-                    m.sum(),
-                ]))
-            if timer is not None:
-                timer.mark_end(s, stream)
-            sums = tu.replica_all_sum(torch.stack(sums), self._axis)
-            if self._span is not None and self._span.spanning == "host":
-                return replicas, momentum, sums   # the exchange completes them
-            denom = sums[:, 3].clamp_min(1.0)
-            stats = torch.stack(
-                [sums[:, 0] / denom, sums[:, 1] / denom, sums[:, 2], (sums[:, 3] > 0).float()],
-                dim=1,
-            )
-            return replicas, momentum, stats
+                return replicas, momentum, stats
 
-        outs = self._shards(one, state.replicas, state.momentum)
+        with trace.span("trainer.dispatch", rows=mask_host.size * self.cfg.b_max,
+                        live_rows=int(live_rows)):
+            outs = self._shards(one, state.replicas, state.momentum)
         return (self._layout([o[0] for o in outs]), self._layout([o[1] for o in outs]),
                 outs[0][2])
+
+    def _live_rows(self, plan) -> int:
+        """The rows of this process's rounds that hold a sample: the plan's
+        samples in its replica columns."""
+        return int(plan.per_round_sizes(self.cfg.n_replicas)[:, self._span_slice()].sum())
 
     def _finish_metrics(self, stats) -> tuple[float, float]:
         """A mega-batch's (loss, accuracy) from ``_dispatch_rounds``'s
@@ -970,17 +990,19 @@ class ElasticTrainer:
         them over the processes and the host mirrors the normalization in
         f32 (a dead peer contributes nothing: that mega-batch's metrics
         cover the survivors)."""
-        if self._span is not None and self._span.spanning == "host":
-            f32 = np.float32
-            total, _ = self._span.allreduce_sum("metrics", {"sums": stats.cpu().numpy()})
-            sums = np.asarray(total["sums"], f32)
-            denom = np.maximum(sums[:, 3], f32(1.0))
-            loss_r, acc_r = sums[:, 0] / denom, sums[:, 1] / denom
-            n_live = np.maximum((sums[:, 3] > 0).astype(f32).sum(dtype=f32), f32(1.0))
-            return (float(loss_r.sum(dtype=f32) / n_live), float(acc_r.sum(dtype=f32) / n_live))
-        n_live = stats[:, 3].sum().clamp_min(1.0)
-        loss, acc = (torch.stack([stats[:, 0].sum(), stats[:, 1].sum()]) / n_live).tolist()
-        return loss, acc
+        with trace.span("trainer.collect"):
+            if self._span is not None and self._span.spanning == "host":
+                f32 = np.float32
+                total, _ = self._span.allreduce_sum("metrics", {"sums": stats.cpu().numpy()})
+                sums = np.asarray(total["sums"], f32)
+                denom = np.maximum(sums[:, 3], f32(1.0))
+                loss_r, acc_r = sums[:, 0] / denom, sums[:, 1] / denom
+                n_live = np.maximum((sums[:, 3] > 0).astype(f32).sum(dtype=f32), f32(1.0))
+                return (float(loss_r.sum(dtype=f32) / n_live),
+                        float(acc_r.sum(dtype=f32) / n_live))
+            n_live = stats[:, 3].sum().clamp_min(1.0)
+            loss, acc = (torch.stack([stats[:, 0].sum(), stats[:, 1].sum()]) / n_live).tolist()
+            return loss, acc
 
     def _pack_plan(self, grid, lr, b_slots: int, host: Optional[dict] = None):
         """Each shard's column block of the plan grid, packed: a list of
@@ -996,16 +1018,18 @@ class ElasticTrainer:
             # uploaded; packing is a pure gather of payloads the plan fetched)
             rows = self._grows(s)
             sub = [row[rows] for row in grid]
-            if host is None:
-                arrays, mask_np = self.provider.stack_plan(sub, b_slots)
-                arrays = dict(arrays, **{_STAGED_MASK: mask_np, _STAGED_LR: lr32[rows]})
-            else:
-                fields = [k for k, i in host if i == s and k not in (_STAGED_MASK, _STAGED_LR)]
-                _, mask_np = self.provider.stack_plan(
-                    sub, b_slots, out={k: host[(k, s)].numpy() for k in fields})
-                host[(_STAGED_MASK, s)].numpy()[...] = mask_np
-                host[(_STAGED_LR, s)].numpy()[...] = lr32[rows]
-                arrays = {k: host[(k, s)] for k in fields + [_STAGED_MASK, _STAGED_LR]}
+            with trace.span("trainer.pack.shard", shard=s):
+                if host is None:
+                    arrays, mask_np = self.provider.stack_plan(sub, b_slots)
+                    arrays = dict(arrays, **{_STAGED_MASK: mask_np, _STAGED_LR: lr32[rows]})
+                else:
+                    fields = [k for k, i in host
+                              if i == s and k not in (_STAGED_MASK, _STAGED_LR)]
+                    _, mask_np = self.provider.stack_plan(
+                        sub, b_slots, out={k: host[(k, s)].numpy() for k in fields})
+                    host[(_STAGED_MASK, s)].numpy()[...] = mask_np
+                    host[(_STAGED_LR, s)].numpy()[...] = lr32[rows]
+                    arrays = {k: host[(k, s)] for k in fields + [_STAGED_MASK, _STAGED_LR]}
             packed.append(arrays)
             masks.append(mask_np)
         return packed, np.concatenate(masks, axis=1)
@@ -1020,28 +1044,27 @@ class ElasticTrainer:
 
         return self._shards(one)
 
-    def _run_rounds_scan(self, state: ElasticState, plan, b_slots: int):
-        """Upload the stacked plan once, run its rounds on the device, and
-        read the mega-batch's (loss, accuracy) back in one host sync."""
-        t0 = time.perf_counter()
-        grid = plan.payload_grid(self.cfg.n_replicas)
-        packed, mask_np = self._pack_plan(grid, state.lr, b_slots)
-        t1 = time.perf_counter()
-        shards = self._upload(packed)
-        self._log_staging(state.megabatch_idx, None, t0, t1, time.perf_counter(),
+    def _stage_plan(self, state: ElasticState, plan, plan_span) -> tuple[list, np.ndarray]:
+        """The sequential path's staging, inside its ``trainer.stage`` span:
+        lay out the plan's grid and pack it, then upload it once; ``(shards,
+        mask)`` as ``_dispatch_rounds`` takes them."""
+        with trace.span("trainer.pack") as pack:
+            grid = plan.payload_grid(self.cfg.n_replicas)
+            packed, mask_np = self._pack_plan(grid, state.lr, self.cfg.b_max)
+        with trace.span("trainer.upload") as upload:
+            shards = self._upload(packed)
+        self._log_staging(state.megabatch_idx, plan_span, pack, upload,
                           [a for arrays in packed for a in arrays.values()])
-        replicas, momentum, stats = self._dispatch_rounds(state, shards, mask_np)
-        loss, acc = self._finish_metrics(stats)
-        return replicas, momentum, loss, acc
+        return shards, mask_np
 
-    def _log_staging(self, megabatch_idx, t_plan, t_pack, t_upload, t_end, arrays) -> None:
-        """One ``staging_log`` entry: host seconds to plan (None where the
-        caller planned outside), pack and upload, and the bytes uploaded."""
+    def _log_staging(self, megabatch_idx, plan, pack, upload, arrays) -> None:
+        """One ``staging_log`` entry from the spans of a staging: host
+        seconds to plan, pack and upload, and the bytes uploaded."""
         self.staging_log.append({
             "megabatch": int(megabatch_idx),
-            "plan_s": None if t_plan is None else t_pack - t_plan,
-            "pack_s": t_upload - t_pack,
-            "upload_s": t_end - t_upload,
+            "plan_s": plan.seconds,
+            "pack_s": pack.seconds,
+            "upload_s": upload.seconds,
             "bytes": int(sum(a.nbytes for a in arrays)),
         })
 
@@ -1168,15 +1191,17 @@ class ElasticTrainer:
         mega-batch (``run`` asks for it on all but the last), and a bare
         call leaves no staged plan behind. The rounds update
         ``state.replicas``/``state.momentum`` in place: continue from the
-        returned state only.
+        returned state only. Its ``trainer.megabatch`` span is the root of
+        the mega-batch's spans (``utils.trace``).
         """
-        if self.overlap and self.engine == "scan":
-            return self._run_megabatch_overlap(state, bool(prefetch))
-        # a stale prefetch (overlap turned off between calls) must not leak
-        # its advanced cursors into the sequential path
-        if self._staged is not None:
-            self.invalidate_prefetch()
-        return self._run_megabatch_sync(state)
+        with trace.span("trainer.megabatch", megabatch=int(state.megabatch_idx)):
+            if self.overlap and self.engine == "scan":
+                return self._run_megabatch_overlap(state, bool(prefetch))
+            # a stale prefetch (overlap turned off between calls) must not
+            # leak its advanced cursors into the sequential path
+            if self._staged is not None:
+                self.invalidate_prefetch()
+            return self._run_megabatch_sync(state)
 
     def _run_megabatch_sync(self, state: ElasticState) -> tuple[ElasticState, dict]:
         """Sequential mega-batch: plan → execute → merge, one after another
@@ -1184,48 +1209,47 @@ class ElasticTrainer:
         cfg = self.cfg
         mega_samples = cfg.mega_batch * cfg.b_max
         b_slots = cfg.b_max
+        scan = self.engine != "legacy_loop"
 
         def fetch(i, take):
             payload = self.provider.fetch(take, b_slots)
             return payload, self.provider.work_units(payload)
 
-        t0 = time.perf_counter()
-        plan = self.algo.plan(self.scheduler, state, mega_samples, fetch)
-        plan_s = time.perf_counter() - t0
-        # measured-speed feedback: the window brackets the rounds (the
-        # engines read their metrics back before returning), so the next
-        # plan runs on the relative speeds this one observed
-        measure = isinstance(self.speed, MeasuredSpeedModel)
-        t_start = self.speed.begin() if measure else None
-        if self._shard_timer is not None:
-            self._shard_timer.reset(self._n_shards)
-        if self.engine == "legacy_loop":
-            replicas, momentum, train_loss, train_acc = self._run_rounds_legacy(
-                state, plan, b_slots)
+        with trace.span("trainer.stage"):
+            with trace.span("trainer.plan") as plan_span:
+                plan = self.algo.plan(self.scheduler, state, mega_samples, fetch)
+            # measured-speed feedback: the window brackets the rounds (the
+            # engines read their metrics back before returning), so the next
+            # plan runs on the relative speeds this one observed
+            measure = isinstance(self.speed, MeasuredSpeedModel)
+            t_start = self.speed.begin() if measure else None
+            if self._shard_timer is not None:
+                self._shard_timer.reset(self._n_shards)
+            if scan:
+                shards, mask_np = self._stage_plan(state, plan, plan_span)
+        if scan:
+            replicas, momentum, stats = self._dispatch_rounds(state, shards, mask_np,
+                                                              self._live_rows(plan))
+            train_loss, train_acc = self._finish_metrics(stats)
         else:
-            replicas, momentum, train_loss, train_acc = self._run_rounds_scan(
-                state, plan, b_slots)
-            self.staging_log[-1]["plan_s"] = plan_s
-        if measure:
-            self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
+            with trace.span("trainer.dispatch", rows=plan.n_rounds * self._mesh_width() * b_slots,
+                            live_rows=self._live_rows(plan)):
+                replicas, momentum, train_loss, train_acc = self._run_rounds_legacy(
+                    state, plan, b_slots)
 
-        # ---- non-finite guard: heal poisoned replicas before the barrier;
-        # inert while every replica is finite ----
-        guard_repaired: list[int] = []
-        finite = self._global_finite_rows(replicas)
-        if not finite.all():
-            replicas, momentum = self._repair_nonfinite(state, replicas, momentum, finite)
-            guard_repaired = np.flatnonzero(~finite).tolist()
-
-        # ---- merge (the barrier) + between-mega-batch adaptation ----
-        outcome = self.algo.merge(self, state, plan, replicas)
-        new_b, new_lr = self.algo.adapt(state, plan, cfg)
-
-        n_merges = self.algo.merges_per_megabatch(plan)
-        self.scheduler.clock.t[:] += self.merge_cost * n_merges
-        virtual_time = float(self.scheduler.clock.t.max())
-        return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
-                                      train_loss, train_acc, virtual_time, guard_repaired)
+        with trace.span("trainer.barrier"):
+            if measure:
+                self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
+            replicas, momentum, guard_repaired = self._guard(state, replicas, momentum)
+            # ---- merge (the barrier) + between-mega-batch adaptation ----
+            outcome = self._merge_barrier(state, plan, replicas)
+            with trace.span("trainer.adapt"):
+                new_b, new_lr = self.algo.adapt(state, plan, cfg)
+                n_merges = self.algo.merges_per_megabatch(plan)
+                self.scheduler.clock.t[:] += self.merge_cost * n_merges
+                virtual_time = float(self.scheduler.clock.t.max())
+            return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
+                                          train_loss, train_acc, virtual_time, guard_repaired)
 
     def _run_megabatch_overlap(
         self, state: ElasticState, prefetch: bool
@@ -1250,33 +1274,50 @@ class ElasticTrainer:
         t_start = self.speed.begin() if measure else None
         if self._shard_timer is not None:
             self._shard_timer.reset(self._n_shards)
-        replicas, momentum, stats = self._dispatch_rounds(state, staged.shards, staged.mask_host)
+        replicas, momentum, stats = self._dispatch_rounds(state, staged.shards, staged.mask_host,
+                                                          self._live_rows(plan))
 
         # ---- host work overlapped with the rounds on the device ----
-        n_merges = self.algo.merges_per_megabatch(plan)
-        self.scheduler.clock.t[:] += self.merge_cost * n_merges
-        virtual_time = float(self.scheduler.clock.t.max())
-        new_b, new_lr = self.algo.adapt(state, plan, cfg)
+        with trace.span("trainer.adapt"):
+            n_merges = self.algo.merges_per_megabatch(plan)
+            self.scheduler.clock.t[:] += self.merge_cost * n_merges
+            virtual_time = float(self.scheduler.clock.t.max())
+            new_b, new_lr = self.algo.adapt(state, plan, cfg)
         if prefetch:
             self._staged = self._stage_megabatch(new_b, new_lr, int(state.megabatch_idx) + 1)
 
         # ---- collect: the one host sync of the mega-batch ----
         train_loss, train_acc = self._finish_metrics(stats)
-        # every shard's rounds, the slot's consumers, are done on the device
-        # (the collect waited for them all): reusable two stagings on
-        self._staging.release(staged.slot_id)
-        if measure:
-            self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
+        with trace.span("trainer.barrier"):
+            # every shard's rounds, the slot's consumers, are done on the
+            # device (the collect waited for them all): reusable two
+            # stagings on
+            self._staging.release(staged.slot_id)
+            if measure:
+                self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
+            # ---- non-finite guard, then the merge (the barrier) ----
+            replicas, momentum, guard_repaired = self._guard(state, replicas, momentum)
+            outcome = self._merge_barrier(state, plan, replicas)
+            return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
+                                          train_loss, train_acc, virtual_time, guard_repaired)
 
-        # ---- non-finite guard, then the merge (the barrier) ----
-        guard_repaired: list[int] = []
-        finite = self._global_finite_rows(replicas)
-        if not finite.all():
-            replicas, momentum = self._repair_nonfinite(state, replicas, momentum, finite)
-            guard_repaired = np.flatnonzero(~finite).tolist()
-        outcome = self.algo.merge(self, state, plan, replicas)
-        return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
-                                      train_loss, train_acc, virtual_time, guard_repaired)
+    def _guard(self, state, replicas, momentum):
+        """The non-finite guard: heal poisoned replicas before the barrier;
+        inert while every replica is finite. Returns (replicas, momentum,
+        the rows it repaired)."""
+        repaired: list[int] = []
+        with trace.span("trainer.guard"):
+            finite = self._global_finite_rows(replicas)
+            if not finite.all():
+                replicas, momentum = self._repair_nonfinite(state, replicas, momentum, finite)
+                repaired = np.flatnonzero(~finite).tolist()
+        return replicas, momentum, repaired
+
+    def _merge_barrier(self, state, plan, replicas):
+        """``algo.merge`` in its span, which counts the bytes the merge
+        copied between devices (``copy_bytes``)."""
+        with trace.span("trainer.merge", copy_bytes=0):
+            return self.algo.merge(self, state, plan, replicas)
 
     def _observe_window(self, plan, R: int, seconds: float) -> None:
         """Feed one mega-batch's measurement window to the speed model: the
@@ -1297,32 +1338,33 @@ class ElasticTrainer:
     def _megabatch_result(self, state, plan, outcome, momentum, new_b, new_lr,
                           train_loss, train_acc, virtual_time, guard_repaired):
         """(new_state, info) of a mega-batch, for both paths."""
-        R = self.cfg.n_replicas
-        alphas = outcome.alphas if outcome.alphas is not None else np.full(R, 1.0 / R)
-        new_state = ElasticState(
-            replicas=outcome.replicas,
-            global_model=outcome.global_model,
-            prev_global=outcome.prev_global,
-            momentum=momentum,
-            b=np.asarray(new_b, np.float64),
-            lr=np.asarray(new_lr, np.float64),
-            megabatch_idx=state.megabatch_idx + 1,
-        )
-        info = {
-            "n_replicas": R,
-            "u": plan.u.tolist(),
-            "b": np.round(np.asarray(new_b), 2).tolist(),
-            "lr": np.round(np.asarray(new_lr), 6).tolist(),
-            "alphas": np.round(np.asarray(alphas, np.float64), 4).tolist(),
-            "pert_active": bool(outcome.pert_active),
-            "train_loss": train_loss,
-            "train_accuracy": train_acc,
-            "virtual_time": virtual_time,
-            "n_rounds": plan.n_rounds,
-        }
-        if guard_repaired:
-            info["guard_repaired"] = guard_repaired
-        return new_state, info
+        with trace.span("trainer.result"):
+            R = self.cfg.n_replicas
+            alphas = outcome.alphas if outcome.alphas is not None else np.full(R, 1.0 / R)
+            new_state = ElasticState(
+                replicas=outcome.replicas,
+                global_model=outcome.global_model,
+                prev_global=outcome.prev_global,
+                momentum=momentum,
+                b=np.asarray(new_b, np.float64),
+                lr=np.asarray(new_lr, np.float64),
+                megabatch_idx=state.megabatch_idx + 1,
+            )
+            info = {
+                "n_replicas": R,
+                "u": plan.u.tolist(),
+                "b": np.round(np.asarray(new_b), 2).tolist(),
+                "lr": np.round(np.asarray(new_lr), 6).tolist(),
+                "alphas": np.round(np.asarray(alphas, np.float64), 4).tolist(),
+                "pert_active": bool(outcome.pert_active),
+                "train_loss": train_loss,
+                "train_accuracy": train_acc,
+                "virtual_time": virtual_time,
+                "n_rounds": plan.n_rounds,
+            }
+            if guard_repaired:
+                info["guard_repaired"] = guard_repaired
+            return new_state, info
 
     # ------------------------------------------------------------------
     # staging: plan → fused pack → one asynchronous upload, revocable
@@ -1361,32 +1403,32 @@ class ElasticTrainer:
         R = cfg.n_replicas
         b_slots = cfg.b_max
         mega_samples = cfg.mega_batch * cfg.b_max
-        b = np.asarray(b, np.float64).copy()
-        lr = np.asarray(lr, np.float64).copy()
-        snapshot = self._cursor_snapshot()
-
         provider = self.provider
 
         def fetch(i, take):
             return provider.fetch_staged(take, b_slots)
 
-        t_plan = time.perf_counter()
-        plan = self.algo.plan(self.scheduler, _PlanView(b, lr, megabatch_idx), mega_samples, fetch)
-        grid = plan.payload_grid(R)
-        t_pack = time.perf_counter()
-        spec = {}
-        for s in range(self._n_shards):
-            n = self._rows(s).stop - self._rows(s).start
-            for k, v in provider.staging_spec(len(grid), n, b_slots).items():
-                spec[(k, s)] = v
-            spec[(_STAGED_MASK, s)] = ((len(grid), n), np.float32)
-            spec[(_STAGED_LR, s)] = ((n,), np.float32)
-        slot_id, host = self._staging.acquire(spec)
-        packed, mask_np = self._pack_plan(grid, lr, b_slots, host=host)
-        t_upload = time.perf_counter()
-        shards = self._upload(packed, non_blocking=True)
-        self._log_staging(megabatch_idx, t_plan, t_pack, t_upload, time.perf_counter(),
-                          host.values())
+        with trace.span("trainer.stage", megabatch=int(megabatch_idx)):
+            b = np.asarray(b, np.float64).copy()
+            lr = np.asarray(lr, np.float64).copy()
+            snapshot = self._cursor_snapshot()
+            with trace.span("trainer.plan") as plan_span:
+                plan = self.algo.plan(self.scheduler, _PlanView(b, lr, megabatch_idx),
+                                      mega_samples, fetch)
+                grid = plan.payload_grid(R)
+            with trace.span("trainer.pack") as pack:
+                spec = {}
+                for s in range(self._n_shards):
+                    n = self._rows(s).stop - self._rows(s).start
+                    for k, v in provider.staging_spec(len(grid), n, b_slots).items():
+                        spec[(k, s)] = v
+                    spec[(_STAGED_MASK, s)] = ((len(grid), n), np.float32)
+                    spec[(_STAGED_LR, s)] = ((n,), np.float32)
+                slot_id, host = self._staging.acquire(spec)
+                packed, mask_np = self._pack_plan(grid, lr, b_slots, host=host)
+            with trace.span("trainer.upload") as upload:
+                shards = self._upload(packed, non_blocking=True)
+            self._log_staging(megabatch_idx, plan_span, pack, upload, host.values())
         return _StagedMegaBatch(
             plan=plan, shards=shards, mask_host=mask_np,
             b=b, lr=lr, megabatch_idx=int(megabatch_idx), n_replicas=R,
@@ -1473,14 +1515,16 @@ class ElasticTrainer:
         test loss and top-1 accuracy. ``run`` issues it at a boundary and
         collects it at the next, so its device work queues behind the next
         mega-batch's instead of stalling the host between them."""
-        per_batch = []
-        for batch in self._staged_test_batches(test_batches):
-            loss, aux = self.model.loss_fn(params, batch)
-            per_batch.append(torch.stack([loss, aux["accuracy"], aux["n_valid"]]))
-        pending = torch.stack(per_batch) if per_batch else None
+        with trace.span("trainer.eval"):
+            per_batch = []
+            for batch in self._staged_test_batches(test_batches):
+                loss, aux = self.model.loss_fn(params, batch)
+                per_batch.append(torch.stack([loss, aux["accuracy"], aux["n_valid"]]))
+            pending = torch.stack(per_batch) if per_batch else None
 
         def collect() -> dict:
-            rows = pending.tolist() if pending is not None else []
+            with trace.span("trainer.eval.collect"):
+                rows = pending.tolist() if pending is not None else []
             tot_acc, tot_loss, tot_n = 0.0, 0.0, 0.0
             for loss, acc, n in rows:
                 tot_acc += acc * n

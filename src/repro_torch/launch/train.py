@@ -15,7 +15,9 @@ supports: ``--engine``, ``--overlap``, ``--placement``, ``--speed``, ``--dense-g
 ``--checkpoint-every``, ``--checkpoint-retain`` and ``--restore-from``
 included, and the multi-process flags ``--multihost``,
 ``--heartbeat-interval`` and ``--heartbeat-grace``), plus ``--device``
-(default ``cuda``; ``cpu`` runs the kernels' plain versions). ``--speed measured`` plans on relative speeds measured
+(default ``cuda``; ``cpu`` runs the kernels' plain versions) and
+``--trace-out``, which writes the trainer's spans (``utils.trace``) as JSON
+lines at the end of the run. ``--speed measured`` plans on relative speeds measured
 from the real mega-batch times (``MeasuredSpeedModel``) instead of the
 simulated factors. ``--placement sharded`` splits the replicas over a
 replica mesh (``launch.mesh.make_replica_mesh``): every visible card, or
@@ -70,6 +72,7 @@ from repro_torch.launch import multihost as mhmod
 from repro_torch.launch.mesh import make_replica_mesh
 from repro_torch.models import model as MDL
 from repro_torch.models.xml_mlp import XMLMLPConfig, make_model as make_xml_model
+from repro_torch.utils import trace
 from repro_torch.utils.logging import log
 
 
@@ -223,6 +226,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--avg-nnz", type=int, default=64)
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--out", default="")
+    ap.add_argument("--trace-out", default="",
+                    help="write the trainer's spans (utils.trace) here as JSON lines")
     return ap
 
 
@@ -347,6 +352,9 @@ def main(argv=None):
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(mlog.records, f, indent=1)
+    if args.trace_out:
+        os.makedirs(os.path.dirname(args.trace_out) or ".", exist_ok=True)
+        log("trace", spans=trace.write_jsonl(args.trace_out), file=args.trace_out)
     if mh is not None:
         mh.shutdown()
     return state, mlog

@@ -30,6 +30,11 @@ process's shards: each collective's local sum is completed by one
 algorithms' in-round reductions cross processes as the reference's do over
 a global mesh.
 
+Spans. A worker adopts the span open on the thread that called ``run``
+(``utils.trace``), so the spans it opens name that span as their parent,
+and a tensor fetched from another device counts its bytes in the open
+span's ``copy_bytes``.
+
 Failures. A shard that raises aborts the barrier, so the others leave any
 collective they wait in with ``BrokenBarrierError``; ``run`` raises the
 first shard's own error (not a broken barrier) once every worker has
@@ -46,6 +51,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.sharding.rules import mesh_devices
+from repro_torch.utils import trace
 
 _local = threading.local()   # the worker's shard index and bound axes
 
@@ -85,7 +91,10 @@ def _fetch(x, ev, device):
         src = torch.cuda.current_stream(x.device)
         src.wait_event(ev)
         x.record_stream(src)
-    return x if device is None or x.device == device else x.to(device)
+    if device is None or x.device == device:
+        return x
+    trace.add("copy_bytes", x.numel() * x.element_size())
+    return x.to(device)
 
 
 class ReplicaAxis:
@@ -209,8 +218,9 @@ class ShardExecutor:
             raise RuntimeError("this shard executor is closed")
         forks = {d: _event_on(torch.cuda.current_stream(d)) for d in set(self.mesh)
                  if d.type == "cuda"}
+        parent = trace.current()
         for s, d in enumerate(self.mesh):
-            self._inbox[s].put((fn, forks.get(d)))
+            self._inbox[s].put((fn, forks.get(d), parent))
         results: list = [None] * self.size
         errors: dict = {}
         for _ in range(self.size):
@@ -237,9 +247,10 @@ class ShardExecutor:
             item = self._inbox[s].get()
             if item is None:
                 return
-            fn, fork = item
+            fn, fork, parent = item
             try:
                 with ExitStack() as ctx:
+                    ctx.enter_context(trace.adopt(parent))
                     if stream is not None:
                         ctx.enter_context(torch.cuda.device(device))
                         ctx.enter_context(torch.cuda.stream(stream))
@@ -254,7 +265,7 @@ class ShardExecutor:
                 self._outbox.put((s, False, e))
             # hold nothing of the call between calls: the function closes
             # over its caller (a trainer and its tensors)
-            item = fn = fork = out = end = None
+            item = fn = fork = parent = out = end = None
 
     def close(self) -> None:
         """Stop the worker threads."""
