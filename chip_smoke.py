@@ -9,8 +9,9 @@ Phases (each prints its lines; any failure raises and exits nonzero):
 
 1. device  — needs ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` gives them.
-2. build   — compiles the six ``src/repro_torch/csrc/*.cu`` sources
-   (spmm, spmm_grad_w, weighted_merge, flash_attention, ssd_scan, moe_gmm)
+2. build   — compiles the seven ``src/repro_torch/csrc/*.cu`` sources
+   (spmm, spmm_grad_w, weighted_merge, flash_attention, ssd_scan, moe_gmm,
+   xml_dh_gemm)
    with nvcc, one process per source, in parallel, and loads the library.
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    at the shapes the main path gives it (plus ragged shapes and bf16), with
@@ -45,7 +46,10 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    with the reference's tolerances except flash_attention at S = 4096 (one
    bf16 ulp per element, relative L2 error 1e-2); each timed beside its
    bound, its plain version and, where one exists, one PyTorch call (SDPA;
-   three bmm).
+   three bmm). Last, the XML head's ``xml_dh_gemm`` (dh = dlogits . w2^T,
+   K = 670,091) at the main path's R = 4 shape and the sharded placement's
+   2-D one, each beside cuBLAS's ``bmm`` / ``mm`` of the same product, and
+   at small and ragged shapes; two launches bitwise equal.
 4. slice   — the port's trainer on the card against the same trainer on the
    CPU (plain versions), same weights and data, small width: every
    registered algorithm, plus adaptive and sync with dense gradients and
@@ -55,7 +59,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    670,091 classes, hidden 128): Adaptive SGD, R = 4, b_max 256, 3
    mega-batches of 20 batches, with evaluation, through
    ``ElasticTrainer.run``. Checks finite losses and model, and that every
-   kernel launch count is what the run needed. One more mega-batch runs
+   kernel launch count is what the run needed (``xml_dh_gemm`` once a
+   training round, and none in an evaluation). One more mega-batch runs
    under the profiler: the device busy share and the top kernels.
 6. paths   — the same width and data: Adaptive SGD with dense gradients
    (``spmm_grad_w`` every round) for 2 mega-batches against a sparse run
@@ -2591,6 +2596,8 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False,
     from repro_torch.kernels.ssd_scan.ops import PATHS as SSD_PATHS
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.xml_head.ops import xml_dh_gemm_cuda
+    from repro_torch.kernels.xml_head.ref import dh_ref
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as MDL
@@ -3131,6 +3138,41 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    def dh_case(name, r, b, h, nc, library=False):
+        """The XML head's dh = g . w2^T (K = nc) against its plain version;
+        ``r`` None for the 2-D call of the sharded placement."""
+        lead = () if r is None else (r,)
+        g = torch.randn(lead + (b, nc), generator=gen, device=dev)
+        w = torch.randn(lead + (h, nc), generator=gen, device=dev) * h ** -0.5
+        if not torch.equal(xml_dh_gemm_cuda(g, w), xml_dh_gemm_cuda(g, w)):
+            raise RuntimeError(f"xml_dh_gemm[{name}]: two launches differ")
+        # f32 sums of nc products, the kernel's split by split and the plain
+        # version's in cuBLAS's order: each within about sqrt(nc) roundings
+        # of its partial sums, far inside 1e-6 of the largest sum_k |g w|,
+        # which one product left out or counted twice exceeds
+        scale = torch.matmul(g.abs(), w.abs().transpose(-1, -2)).max().item()
+        lib = None
+        if library:
+            lib = ((lambda: torch.bmm(g, w.transpose(1, 2))) if r is not None
+                   else (lambda: torch.mm(g, w.t())))
+        return measure(
+            f"xml_dh_gemm[{name}]", lambda: xml_dh_gemm_cuda(g, w), lambda: dh_ref(g, w), lib,
+            nbytes=(g.numel() + w.numel() + g.numel() // nc * h) * 4,
+            flops=2 * (r or 1) * b * h * nc, tol=dict(rtol=1e-5, atol=1e-6 * scale),
+        )
+
+    # the main path's R = 4 call and the sharded placement's 2-D one, each
+    # beside cuBLAS's bmm / mm of the same product; phase 4's small width
+    # and ragged shapes (odd NC, B and H off the 128-row tiles)
+    results["xml_dh_gemm"] = dh_case(f"main (4,256,128,{NC})", 4, 256, 128, NC, library=True)
+    results["xml_dh_gemm"]["sharded_2d"] = dh_case(f"2-D (256,128,{NC})", None, 256, 128, NC,
+                                                   library=True)
+    for case in ((4, 32, 32, 128), (None, 32, 32, 128), (3, 37, 45, 1001),
+                 (None, 257, 130, 2049), (1, 7, 3, 5)):
+        dh_case(f"{case}", *case)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # ---- 4. the slice on the card against the CPU, small width -------------
     small = dict(n_features=512, n_classes=128, hidden=32)
     p0 = init_params(XMLMLPConfig(**small), torch.Generator().manual_seed(SEED))
@@ -3197,9 +3239,11 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False,
         return {name: fn.launches for name, fn in counters.items()}
 
     reset_counts()
+    xml_dh_gemm_cuda.launches = 0
     state, mlog = trainer.run(3, test_batches=test_batches, verbose=True)
     torch.cuda.synchronize()
     launches = read_counts()
+    dh_launches = xml_dh_gemm_cuda.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prev = 0.0
     for rec in mlog.records:
@@ -3215,6 +3259,16 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False,
     print(f"main launches: {launches} (expected {want})")
     if launches != want:
         raise RuntimeError(f"main: launch counts {launches} != expected {want}")
+    # the head's dh kernel: once a training round (its backward), never in
+    # an evaluation (forward only)
+    xml_dh_gemm_cuda.launches = 0
+    trainer.evaluate(state.global_model, test_batches)
+    torch.cuda.synchronize()
+    print(f"main xml_dh_gemm launches: {dh_launches} over {n_rounds} rounds, "
+          f"{xml_dh_gemm_cuda.launches} in an evaluation of {len(test_batches)} batches")
+    if dh_launches != n_rounds or xml_dh_gemm_cuda.launches:
+        raise RuntimeError(f"main: xml_dh_gemm launched {dh_launches} times over {n_rounds} "
+                           f"rounds and {xml_dh_gemm_cuda.launches} in an evaluation")
     losses = [r[k] for r in mlog.records for k in ("train_loss", "test_loss")]
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"main: non-finite loss {losses}")
@@ -3565,6 +3619,7 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False,
                      "src/repro/kernels/ssd_scan/ssd_scan.py:81"),
         "moe_ffn_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
                         "src/repro/kernels/moe_gmm/moe_gmm.py:59"),
+        "xml_dh_gemm": ("src/repro_torch/csrc/xml_dh_gemm.cu", None),  # XLA's product
     }
     # launches: spmm on the XML main path (phase 5) and the elastic runs
     # (phase 10 a, c), spmm_grad_w on the dense-gradient paths (phases 6,
@@ -3636,6 +3691,7 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False,
     results["flash_attention"]["launches_by_path"] = {
         "lm_prefill": lm_launches["flash_attention"], **encdec}
     launches["flash_attention"] = sum(results["flash_attention"]["launches_by_path"].values())
+    launches["xml_dh_gemm"] = dh_launches  # the XML main path (phase 5)
     kernels = []
     for name, r in results.items():
         kernels.append(dict(

@@ -58,6 +58,8 @@ SIGNATURES = {
     "ssd_scan": [_P] * 9 + [_I64] * 11 + [_P],
     # buf, wi, wg, wo, scratch, out, E, C, D, F, dtype, stream
     "moe_ffn_gmm": [_P] * 6 + [_I64] * 5 + [_P],
+    # g, w, part, out, R, B, H, NC, splits, kchunk, stream
+    "xml_dh_gemm": [_P] * 4 + [_I64] * 6 + [_P],
 }
 
 

@@ -3,7 +3,9 @@
 Port of ``repro/models/xml_mlp.py``. Sparse input layer -> hidden ReLU
 layer -> softmax output over the (huge) label space, with cross-entropy
 loss. The input layer is the ``spmm`` op: the CUDA kernel on the card, its
-plain version on the CPU.
+plain version on the CPU. The head's product is ``head_matmul``, whose
+gradient for the hidden layer (K = n_classes) is the split-K kernel
+``xml_dh_gemm`` on the card.
 
 Every function takes parameters with or without a leading replica dim R
 (``w1`` (R, NF, H) with batches (R, B, ...), or ``w1`` (NF, H) with
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.spmm.ops import spmm
+from repro_torch.kernels.xml_head.ops import head_matmul
 from repro_torch.models.protocol import TrainableModel
 from repro_torch.optim.row_sparse import RowSparseGrad
 
@@ -86,7 +89,7 @@ def _head_loss(h_lin: torch.Tensor, rest: dict, batch: dict):
     replica dim every output is (R,).
     """
     h = torch.relu(h_lin + rest["b1"][..., None, :])
-    logits = (torch.matmul(h, rest["w2"]) + rest["b2"][..., None, :]).float()
+    logits = (head_matmul(h, rest["w2"]) + rest["b2"][..., None, :]).float()
     logp = torch.log_softmax(logits, dim=-1)
     lab_logp = torch.gather(logp, -1, batch["label_idx"].long())
     lmask = batch["label_mask"].float()
