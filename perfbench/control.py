@@ -8,10 +8,11 @@ For each seed it prints one JSON line of compared numbers (``check``'s
 * ``control``: the reference computed with TF32 on (the nearest precision
   below the configuration's f32), put in the program's place, against the
   f32 reference;
-* ``half_batch``: the reference with every other sample of each batch left
-  out, against the reference;
-* ``no_exchange`` (a cell whose replicas are split over cards): the
-  reference whose merge sums only the first card's replicas;
+* each planted fault of the cell's model family (its ``FAULTS``, each run
+  where the cell has the shards it needs), against the reference; the
+  XML MLP's are ``half_batch``, every other sample of each batch left
+  out, and ``no_exchange`` (a cell whose replicas are split over cards),
+  the merge summing only the first card's replicas;
 * with ``--program``: the program itself, as a run of the cell judges it,
   with a window of one mega-batch (the lower readings).
 
@@ -37,16 +38,15 @@ def readings(cell: dict, seed: int, devices: tuple, program: bool) -> dict:
     import numpy as np
     import torch
 
-    from perfbench import harness, inputs
-    from perfbench.reference import check, mlp
-    from perfbench.traffic import xml_synth
+    from perfbench import harness
+    from perfbench.reference import check
 
-    config, traffic = cell["config_data"], cell["traffic_data"]
+    config, traffic, family = cell["config_data"], cell["traffic_data"], cell["family"]
     out = {}
     if program:
         result = harness.execute(cell, seed, 0.0, False, devices, time.perf_counter())
         out["program"] = {k: c["value"] for k, c in result["checks"].items()}
-    pool, _ = xml_synth.pools(config, seed, devices[0])
+    pool, _ = family.pools(config, seed, devices[0])
     n_shards = len(devices) if traffic["placement"] == "sharded" else 1
     R = traffic["replicas"]
     # a measured model discards its first window, and the pipeline plans one
@@ -55,15 +55,15 @@ def readings(cell: dict, seed: int, devices: tuple, program: bool) -> dict:
 
     def follow(tf32=False, fault=None):
         torch.backends.cuda.matmul.allow_tf32 = tf32
-        w0 = inputs.weights(config, seed, devices[0])
-        return mlp.train(w0, pool, traffic, seed, harness.FOLLOWED, readings=windows,
-                         n_shards=n_shards, fault=fault)
+        w0 = family.weights(config, seed, devices[0])
+        return family.reference(w0, pool, traffic, seed, harness.FOLLOWED, readings=windows,
+                                n_shards=n_shards, fault=fault)
 
     ref = follow(bool(config["allow_tf32"]))
     out["control"] = check.readings(follow(tf32=True), ref)
-    out["half_batch"] = check.readings(follow(fault="half_batch"), ref)
-    if n_shards > 1:
-        out["no_exchange"] = check.readings(follow(fault="no_exchange"), ref)
+    for fault, shards in family.FAULTS.items():
+        if n_shards >= shards:
+            out[fault] = check.readings(follow(fault=fault), ref)
     torch.backends.cuda.matmul.allow_tf32 = bool(config["allow_tf32"])
     return out
 

@@ -1,7 +1,17 @@
 """One run of a cell: ``repro_torch``'s ``ElasticTrainer`` trains the
-paper's XML MLP under Adaptive SGD, mega-batch by mega-batch as
+cell's model under its traffic mix, mega-batch by mega-batch as
 ``ElasticTrainer.run`` drives it, then the plain reference judges what it
 produced.
+
+Nothing here knows the model. The cell's model family
+(``perfbench/families/<family>.py``, found by ``spec.family`` from the
+configuration's ``"family"``) gives the data pools, the weights, the
+program (``build``: the trainer, its provider and the test batches), the
+samples of a fetch, the window's model FLOPs, the kernel launches its
+rooflines read, and the reference that follows the program. This module
+drives what every family shares: the trainer's mega-batches, Algorithm 2's
+merge and its weights, the speed model's readings, the spans, the window
+and the comparison (``reference/check.py``).
 
 Set-up builds the trainer on the cell's cards from the seed (the data
 pools, the weights on the first card) and drives it through the first
@@ -12,21 +22,24 @@ test set. The window then runs mega-batches in a closed loop, the next
 issued as the last is collected, evaluating the global model every
 ``eval_every`` mega-batches (issued at a boundary, collected at the next,
 as ``run`` does), until ``--seconds`` have passed; it ends at the last
-completion. After it, the program's state is freed and the reference
-trains the same first mega-batches from the same weights and data on the
-first card, and replays the host decisions of every mega-batch.
+completion. After it, the program's state is freed and the family's
+reference trains the same first mega-batches from the same weights and
+data on the first card, and replays the host decisions of every
+mega-batch.
 
 With ``trace`` on, the benchmark's spans wrap the calls into the trainer
 (stage, dispatch, collect, merge, eval) and the merge's span closes with a
 synchronise of every card; after the window, the profiler traces a stretch
-of ``TRACE_MEGABATCHES`` more mega-batches, while wrappers record every
-``spmm`` and ``weighted_merge`` launch's inputs for the rooflines. The
-window's own metrics are thus read without the profiler's cost.
+of ``TRACE_MEGABATCHES`` more mega-batches, while wrappers record the
+inputs of every ``weighted_merge`` launch and of the family's launches for
+the rooflines. The window's own metrics are thus read without the
+profiler's cost.
 """
 from __future__ import annotations
 
 import functools
 import gc
+import importlib
 import subprocess
 import sys
 import time
@@ -36,9 +49,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from perfbench import inputs, roofline, spec, trace
-from perfbench.reference import check, mlp
-from perfbench.traffic import xml_synth
+from perfbench import spec, trace
+from perfbench.reference import check
 
 FOLLOWED = 3               # mega-batches the reference follows
 TRACE_MEGABATCHES = 8      # mega-batches in the traced stretch
@@ -74,11 +86,13 @@ class Run:
 class Recorder:
     """The benchmark's wrappers around the program, and what they saw."""
 
-    def __init__(self):
+    def __init__(self, family):
+        self.family = family
         self.readings = []     # the measured windows fed to the speed model, in order
-        self.fetched = []      # (samples, nnz units) of every fetch, in order
+        self.fetched = []      # (samples, work units) of every fetch, in order
         self.alphas = []       # each merge's weights, as the program applied them
-        self.launches = {"spmm": [], "weighted_merge": []}
+        self.launches = {name: [] for name in family.launches()}
+        self.launches["weighted_merge"] = []
         self.recording = False
         self._undo = []
 
@@ -98,13 +112,14 @@ class Recorder:
     def watch(self, trainer, provider):
         """Record the data fetched, the merge weights and the measured
         windows (every run: the model FLOPs and the reference need them)."""
+        samples, work_units = self.family.fetched_samples, provider.work_units
+
         def fetch(orig, staged):
             @functools.wraps(orig)
             def run(take, b_slots):
                 out = orig(take, b_slots)
-                payload, work = out if staged else (out, out.total_nnz)
-                n = len(payload.ids) if staged else payload.n_valid
-                self.fetched.append((n, int(work)))
+                payload, work = out if staged else (out, work_units(out))
+                self.fetched.append((samples(payload, staged), int(work)))
                 return out
             return run
 
@@ -140,8 +155,8 @@ class Recorder:
 
     def trace(self, trainer, devices, merge_s: list):
         """The traced run's spans, the merge's synchronised span, and the
-        kernel launches' inputs while ``recording``."""
-        from repro_torch.kernels.spmm import ops as spmm_ops
+        kernel launches' inputs while ``recording``: ``weighted_merge``'s,
+        which every family merges by, and the family's ``launches``."""
         from repro_torch.kernels.weighted_merge import ops as merge_ops
 
         for name, attr in (("stage", "_stage_megabatch"), ("dispatch", "_dispatch_rounds"),
@@ -169,14 +184,6 @@ class Recorder:
         self.patch(trainer, "evaluate_async", evaluate)
         self.patch(trainer.algo, "merge", merge)
 
-        def spmm(orig):
-            @functools.wraps(orig)
-            def run(idx, val, mask, w):
-                if self.recording:
-                    self.launches["spmm"].append((idx, mask, tuple(w.shape), w.element_size()))
-                return orig(idx, val, mask, w)
-            return run
-
         def weighted_merge(orig):
             @functools.wraps(orig)
             def run(replicas, alphas, g=None, gp=None, gamma=0.0):
@@ -186,52 +193,16 @@ class Recorder:
                 return orig(replicas, alphas, g, gp, gamma)
             return run
 
-        self.patch(spmm_ops, "spmm_cuda", spmm)
         self.patch(merge_ops, "merge_cuda", weighted_merge)
+        for module, attr, wrap in self.family.launches().values():
+            self.patch(importlib.import_module(module), attr,
+                       functools.partial(wrap, rec=self))
 
 
 def synchronize(devices) -> None:
     for d in devices:
         if d.type == "cuda":
             torch.cuda.synchronize(d)
-
-
-def build(config: dict, traffic: dict, seed: int, devices: tuple, train: dict, test: dict):
-    """The program: an ``ElasticTrainer`` over the cell's cards, and the
-    test batches it evaluates."""
-    from repro_torch.configs.base import ElasticConfig
-    from repro_torch.core.heterogeneity import MeasuredSpeedModel, SpeedModel
-    from repro_torch.core.trainer import ElasticTrainer
-    from repro_torch.data.providers import SparseProvider
-    from repro_torch.data.sparse import SparseDataset
-    from repro_torch.models.protocol import TrainableModel
-    from repro_torch.models.xml_mlp import XMLMLPConfig, make_model
-
-    nf, nc = config["n_features"], config["n_classes"]
-    provider = SparseProvider.make(SparseDataset(nf, nc, **train), seed=seed)
-    b_max, R = traffic["b_max"], traffic["replicas"]
-    test_batches = provider.test_batches(SparseDataset(nf, nc, **test), b_max)
-    mcfg = XMLMLPConfig(n_features=nf, n_classes=nc, hidden=config["hidden"],
-                        dtype=getattr(torch, config["dtype"]),
-                        sparse_grads=traffic["sparse_grads"])
-    base = make_model(mcfg)
-    # the weights the benchmark makes on the first card, not the program's
-    # CPU draw: the reference gets the same
-    model = TrainableModel(init=lambda _generator: inputs.weights(config, seed, devices[0]),
-                           loss_fn=base.loss_fn, sparse_grad_fn=base.sparse_grad_fn,
-                           config=mcfg)
-    cfg = ElasticConfig.from_bmax(b_max, algorithm=traffic["algorithm"], n_replicas=R,
-                                  mega_batch=traffic["mega_batch"],
-                                  placement=traffic["placement"])
-    speed = (MeasuredSpeedModel(R) if traffic["speed"] == "measured"
-             else SpeedModel(R, max_gap=traffic["max_gap"], seed=seed))
-    trainer = ElasticTrainer(
-        model=model, provider=provider, cfg=cfg, base_lr=traffic["lr"], speed=speed,
-        seed=seed, device=devices[0], sparse_grads=traffic["sparse_grads"],
-        overlap=traffic["overlap"],
-        mesh=devices if traffic["placement"] == "sharded" else None,
-    )
-    return trainer, provider, test_batches
 
 
 def decision(info: dict, state) -> dict:
@@ -257,15 +228,16 @@ def execute(cell: dict, seed: int, seconds: float, traced: bool, devices: tuple,
 
     ``fault(trainer)``, for the tests only, breaks the program underneath
     before set-up."""
-    config, traffic = cell["config_data"], cell["traffic_data"]
+    config, traffic, family = cell["config_data"], cell["traffic_data"], cell["family"]
     torch.backends.cuda.matmul.allow_tf32 = bool(config["allow_tf32"])
     torch.backends.cudnn.allow_tf32 = bool(config["allow_tf32"])
     run = Run(config=config, devices=devices)
-    rec = Recorder()
+    rec = Recorder(family)
     laps = [("imports", time.perf_counter())]
-    train_pool, test_pool = xml_synth.pools(config, seed, devices[0])
+    train_pool, test_pool = family.pools(config, seed, devices[0])
     laps.append(("pools", time.perf_counter()))
-    trainer, provider, test_batches = build(config, traffic, seed, devices, train_pool, test_pool)
+    trainer, provider, test_batches = family.build(config, traffic, seed, devices, train_pool,
+                                                   test_pool)
     rec.watch(trainer, provider)
     if fault is not None:
         fault(trainer)
@@ -274,19 +246,19 @@ def execute(cell: dict, seed: int, seconds: float, traced: bool, devices: tuple,
         # ---- set-up: the first mega-batches, which the reference follows ----
         state = trainer.init_state()
         laps.append(("program", time.perf_counter()))
-        w0 = inputs.weights(config, seed, devices[0])
-        followed = mlp.Trajectory()
+        w0 = family.weights(config, seed, devices[0])
+        followed = check.Trajectory()
         decisions = []
         for k in range(FOLLOWED):
             state, info = trainer.run_megabatch(state, prefetch=True)
             followed.losses.append(float(info["train_loss"]))
             decisions.append(decision(info, state))
             if k == 0:
-                scale = mlp.weight_sum(rec.alphas[0])
-                followed.update1 = mlp.leaf_norms(state.global_model, w0, scale)
-                followed.update1_units = mlp.unit_norms(state.global_model, w0, scale)
+                scale = check.weight_sum(rec.alphas[0])
+                followed.update1 = check.leaf_norms(state.global_model, w0, scale)
+                followed.update1_units = family.update_units(state.global_model, w0, scale)
             laps.append((f"mega-batch {k + 1}", time.perf_counter()))
-        followed.change = mlp.leaf_norms(state.global_model, w0)
+        followed.change = check.leaf_norms(state.global_model, w0)
         del w0
         trainer.evaluate_async(state.global_model, test_batches)()
         n_readings = len(rec.readings)
@@ -352,13 +324,12 @@ def execute(cell: dict, seed: int, seconds: float, traced: bool, devices: tuple,
 
         # ---- what the window did ----
         run.samples = n_window * mega_samples
-        lo, hi, at, nnz = FOLLOWED * mega_samples, (FOLLOWED + n_window) * mega_samples, 0, 0
-        for n, work in rec.fetched:
+        lo, hi, at, work = FOLLOWED * mega_samples, (FOLLOWED + n_window) * mega_samples, 0, 0
+        for n, units in rec.fetched:
             if lo <= at < hi:
-                nnz += work
+                work += units
             at += n
-        run.model_flops = roofline.model_flops(run.samples, nnz, config["hidden"],
-                                               config["n_classes"])
+        run.model_flops = family.model_flops(config, run.samples, work)
         run.shard_windows = [r[1] for r in rec.readings[n_readings:] if r[0] == "shards"]
         if traced:
             run.profile = trace.read(prof, devices, rec.launches)
@@ -379,9 +350,9 @@ def execute(cell: dict, seed: int, seconds: float, traced: bool, devices: tuple,
     # ---- the reference ----
     torch.backends.cuda.matmul.allow_tf32 = bool(config["allow_tf32"])
     n_shards = len(devices) if traffic["placement"] == "sharded" else 1
-    ref = mlp.train(inputs.weights(config, seed, devices[0]), train_pool, traffic, seed,
-                    FOLLOWED, readings=readings, n_shards=n_shards)
-    replay = mlp.replay_decisions(train_pool, traffic, seed, len(decisions), readings)
+    ref = family.reference(family.weights(config, seed, devices[0]), train_pool, traffic, seed,
+                           FOLLOWED, readings=readings, n_shards=n_shards)
+    replay = family.replay(train_pool, traffic, seed, len(decisions), readings)
     values = check.readings(followed, ref)
     values["decisions"] = (check.decision_mismatches(decisions, replay)
                            + check.decision_mismatches(decisions[:FOLLOWED], ref.decisions,

@@ -7,12 +7,16 @@ the program's spans are on ``time.perf_counter_ns``. One offset maps the
 one onto the other: the median difference between the starts of the pairs
 of spans that wrap the same call (``PAIRS``: the benchmark's wrapper
 outside, the program's span just inside), each kind paired from the last,
-since the stretch ends the run. A placement is refused (``None``) with
-fewer than ``MIN_PAIRS`` pairs, or where any pair's difference lies more
-than ``MAX_RESIDUAL_US`` from the offset: a misaligned trace gives no
-number rather than a wrong one. It is also refused where the stretch saw
-no device operation, since there is no device timeline to place them on,
-and where the program keeps no spans (an older program).
+since the stretch ends the run. A pair whose difference lies more than
+``MAX_RESIDUAL_US`` from the offset is a host pause between the two span
+starts (a GC pass, a pre-empted thread) and is left out; the offset, the
+median of every pair, moves by at most one rank with it. A placement is
+refused (``None``) where fewer than ``MIN_PAIRS`` pairs are left, or where
+more than ``MAX_FAR_SHARE`` of them lie off, as a kind paired wrongly makes
+a third of them: a misaligned trace gives no number rather than a wrong
+one. It is also refused where the stretch saw no device operation, since
+there is no device timeline to place them on, and where the program keeps
+no spans (an older program).
 
 The device's idle time is the stretch less the union of its operations
 over every card, as ``trace.idle_gaps`` takes it; each idle instant goes
@@ -32,6 +36,7 @@ PAIRS = {"stage": "trainer.stage", "dispatch": "trainer.dispatch",
          "collect": "trainer.collect"}
 MIN_PAIRS = 8
 MAX_RESIDUAL_US = 50.0
+MAX_FAR_SHARE = 0.25
 ROOT = "trainer.megabatch"
 IDLE_SPANS = (ROOT, "trainer.stage", "trainer.dispatch", "trainer.adapt", "trainer.collect",
               "trainer.barrier", "trainer.eval", "trainer.eval.collect")
@@ -45,8 +50,8 @@ class Placed:
 
     spans: list                 # (name, start_us, end_us, counters)
     offset_us: float
-    worst_residual_us: float
-    n_pairs: int
+    worst_residual_us: float   # of the pairs kept
+    n_pairs: int               # kept
     stretch_start_us: float
 
     def started(self, name: str) -> list:
@@ -89,13 +94,13 @@ def place(profile: Optional[trace.Profile], spans: list) -> Optional[Placed]:
     if len(diffs) < MIN_PAIRS:
         return None
     offset = statistics.median(diffs)
-    worst = max(abs(d - offset) for d in diffs)
-    if worst > MAX_RESIDUAL_US:
+    near = [abs(d - offset) for d in diffs if abs(d - offset) <= MAX_RESIDUAL_US]
+    if len(near) < MIN_PAIRS or len(diffs) - len(near) > MAX_FAR_SHARE * len(diffs):
         return None
     placed = [(s.name, s.start_ns / 1e3 + offset, s.end_ns / 1e3 + offset, s.counters)
               for s in spans]
     placed = [p for p in placed if p[1] < profile.end_us and p[2] > profile.start_us]
-    return Placed(placed, offset, worst, len(diffs), profile.start_us)
+    return Placed(placed, offset, max(near), len(near), profile.start_us)
 
 
 def idle_split_us(profile: trace.Profile, placed: Placed) -> dict:

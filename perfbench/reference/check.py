@@ -16,18 +16,48 @@ limit was set from):
   leaf or of the median leaf, whichever is larger; the worst leaf.
 * ``change``: ||global_n - w0|| after the last mega-batch followed, the
   same gap, the worst leaf.
-* ``update1_units``: the first update's norm by hidden unit (W1's column,
-  b1's element and W2's row of the unit), the gap over the reference's
-  norm; the median unit. A ReLU that rounding flips for a sample moves
-  one or two units' updates by more than computing in TF32 moves all of
-  them; the median unit reads the latter (PERF.md gives the readings).
+* ``update1_units``: the first update's norm by unit, as the model family
+  splits it (``update_units``; the XML MLP's hidden unit: W1's column,
+  b1's element and W2's row), the gap over the reference's norm; the
+  median unit. A ReLU that rounding flips for a sample moves one or two
+  units' updates by more than computing in TF32 moves all of them; the
+  median unit reads the latter (PERF.md gives the readings).
 
 Leaves whose first update in the reference is under a thousandth of the
 median leaf's move by rounding alone and are left out of both.
+
+The trajectory (:class:`Trajectory`) and its leaf norms are the same for
+every model family: the harness fills one from the program's run, the
+family's reference the other.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
+import torch
+
+
+@dataclass
+class Trajectory:
+    """What a run of the first mega-batches produced."""
+
+    losses: list = field(default_factory=list)       # train loss a mega-batch
+    decisions: list = field(default_factory=list)    # u, b, lr, alphas, n_rounds
+    update1: dict = field(default_factory=dict)      # leaf -> ||global_1 - sum(alphas) w0||
+    update1_units: list = field(default_factory=list)  # the same by hidden unit
+    change: dict = field(default_factory=dict)       # leaf -> ||global_n - w0||
+
+
+def leaf_norms(tree: dict, base: dict, scale: float = 1.0) -> dict:
+    """{leaf: ||tree - scale * base||_2}, in f64."""
+    return {k: torch.linalg.vector_norm(tree[k].double() - scale * base[k].double()).item()
+            for k in tree}
+
+
+def weight_sum(alphas) -> float:
+    """sum_i alpha_i as the merge applies them (each rounded to f32)."""
+    return float(np.asarray(alphas, np.float32).astype(np.float64).sum())
 
 
 def norm_gaps(got: dict, want: dict, moved: dict) -> dict:
@@ -50,7 +80,7 @@ def decision_mismatches(got: list, want: list, keys=("u", "n_rounds", "b", "lr")
 
 def readings(got, want) -> dict:
     """The compared numbers of trajectory ``got`` against ``want`` (both
-    :class:`~.mlp.Trajectory`s)."""
+    :class:`Trajectory`s)."""
     units = np.abs(np.subtract(got.update1_units, want.update1_units)) \
         / np.maximum(want.update1_units, 1e-300)
     return {

@@ -25,32 +25,15 @@ shard's replicas, as if the partials of the other cards never arrived).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-
 import numpy as np
 import torch
 
 from . import host
+from .check import Trajectory, leaf_norms, weight_sum
 
-FAULTS = ("half_batch", "no_exchange")
-
-
-@dataclass
-class Trajectory:
-    """What a run of the first mega-batches produced."""
-
-    losses: list = field(default_factory=list)       # train loss a mega-batch
-    decisions: list = field(default_factory=list)    # u, b, lr, alphas, n_rounds
-    update1: dict = field(default_factory=dict)      # leaf -> ||global_1 - sum(alphas) w0||
-    update1_units: list = field(default_factory=list)  # the same by hidden unit
-    change: dict = field(default_factory=dict)       # leaf -> ||global_n - w0||
-
-
-def leaf_norms(tree: dict, base: dict, scale: float = 1.0) -> dict:
-    """{leaf: ||tree - scale * base||_2}, in f64."""
-    return {k: torch.linalg.vector_norm(tree[k].double() - scale * base[k].double()).item()
-            for k in tree}
-
+# each fault, and the fewest shards a cell needs for it to differ from the
+# reference (``no_exchange`` drops the other cards' replicas)
+FAULTS = {"half_batch": 1, "no_exchange": 2}
 
 UNIT_DIM = {"w1": 1, "b1": 0, "w2": 0}   # each leaf's hidden-unit dim
 
@@ -63,11 +46,6 @@ def unit_norms(tree: dict, base: dict, scale: float = 1.0) -> list:
         d = tree[k].double() - scale * base[k].double()
         sq = sq + (d.square() if d.ndim == 1 else d.square().sum(dim=1 - dim))
     return sq.sqrt().tolist()
-
-
-def weight_sum(alphas) -> float:
-    """sum_i alpha_i as the merge applies them (each rounded to f32)."""
-    return float(np.asarray(alphas, np.float32).astype(np.float64).sum())
 
 
 def pack(pool: dict, ids: np.ndarray, b_slots: int, k: int, n_lab: int, device) -> dict:
@@ -147,7 +125,7 @@ def train(w0: dict, pool: dict, traffic: dict, seed: int, n_megabatches: int,
     windows, under a measured speed model; ``n_shards``: the cards the
     replicas are split over (``no_exchange`` keeps the first card's)."""
     if fault is not None and fault not in FAULTS:
-        raise ValueError(f"unknown fault {fault!r}; known: {FAULTS}")
+        raise ValueError(f"unknown fault {fault!r}; known: {', '.join(FAULTS)}")
     replay = host.Replay(traffic, pool["indptr"], pool["label_ptr"], seed, readings)
     R, device = replay.R, w0["w1"].device
     reps = [{k: v.clone() for k, v in w0.items()} for _ in range(R)]

@@ -4,8 +4,9 @@
 
 from the repository root. Prints each compared number beside its limit as
 the last lines of standard error, and the result as one JSON object on the
-last line of standard output. Exits 2, with no result, where the cell's
-cards are missing; 3 where JAX or the JAX package was loaded.
+last line of standard output. The run's libraries compute on one thread
+each. Exits 2, with no result, where the cell's cards are missing; 3 where
+JAX or the JAX package was loaded.
 """
 import time
 
@@ -27,6 +28,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
+    # one compute thread a library: the host's Python paces this cell, and
+    # intra-op pools that spin on the host's shared cores spread its runs
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+        os.environ[var] = "1"
     # every build and kernel cache at a fixed path inside the checkout
     # (the port's kernels build into build/repro_torch, kernels/_build.py)
     for var, sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "torch_extensions")):

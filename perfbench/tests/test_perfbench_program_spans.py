@@ -44,9 +44,9 @@ def _program(n_mb=N_MB, adapt=(60, 70)):
     return spans
 
 
-def _profile(n_mb=N_MB, jitter=(-3.0, 0.0, 3.0), late=None):
+def _profile(n_mb=N_MB, jitter=(-3.0, 0.0, 3.0), late=None, late_pairs=(5,)):
     """The benchmark's spans around the program's (``jitter`` us early or
-    late, one pair ``late`` us more), and the device busy on [50, 200),
+    late, the pairs ``late_pairs`` ``late`` us more), and the device busy on [50, 200),
     [250, 690) and [800, 900) of every mega-batch: idle under dispatch 40,
     stage 50, collect 10, barrier 150 (of them 100 under the merge), the
     root's own time 60, and 100 outside the trainer."""
@@ -55,7 +55,7 @@ def _profile(n_mb=N_MB, jitter=(-3.0, 0.0, 3.0), late=None):
     for k in range(n_mb):
         t = k * MB_US - 1e6
         for name, a in (("dispatch", 10), ("stage", 70), ("collect", 300)):
-            shift = jitter[i % len(jitter)] + (late if late is not None and i == 5 else 0.0)
+            shift = jitter[i % len(jitter)] + (late if late is not None and i in late_pairs else 0.0)
             spans.append((name, t + a + shift, t + a + 100))
             i += 1
         for a, b in ((50, 200), (250, 690), (800, 900)):
@@ -133,7 +133,8 @@ def test_the_readers(monkeypatch):
 def test_no_number_rather_than_a_wrong_one(case, monkeypatch):
     spans, profile = _program(), _profile()
     if case == "late_pair":
-        profile = _profile(late=60.0)
+        # every stage pair 60 us late: a kind paired wrongly, a third of the pairs
+        profile = _profile(late=60.0, late_pairs=range(1, 3 * N_MB, 3))
     elif case == "too_few_pairs":
         spans, profile = _program(2), _profile(2)      # 6 pairs
     elif case == "no_device":
@@ -151,6 +152,36 @@ def test_no_number_rather_than_a_wrong_one(case, monkeypatch):
 
 def test_a_late_pair_just_inside_the_limit_still_places():
     assert program_spans.place(_profile(late=45.0), _program()) is not None
+
+
+def test_a_lone_late_pair_is_left_out_and_reads_the_same(monkeypatch):
+    """A pair pushed off by a host pause is left out: the offset, the idle
+    split and every reader read as without it."""
+    spans, profile = _program(), _profile(late=60.0)
+    placed = program_spans.place(profile, spans)
+    assert placed.offset_us == program_spans.place(_profile(), spans).offset_us
+    assert placed.n_pairs == 3 * N_MB - 1 and placed.worst_residual_us == pytest.approx(3.0)
+    assert program_spans.idle_split_us(profile, placed) == pytest.approx(
+        {k: v * N_MB for k, v in WANT.items()})
+    monkeypatch.setattr(program_spans, "recorded", lambda: spans)
+    assert spec.reader("idle_ms.staging")(_run(profile)) == pytest.approx(0.050)
+    assert spec.reader("row_use_pct")(_run(profile)) == pytest.approx(83.0)
+
+
+def test_a_quarter_of_the_pairs_late_still_places():
+    """Six late pairs of 24 are left out; the median of all moves by half
+    the jitter's step (1.5 us), and the split with it, no further."""
+    profile = _profile(late=60.0, late_pairs=(0, 5, 9, 13, 17, 22))
+    placed = program_spans.place(profile, _program())
+    true = program_spans.place(_profile(), _program()).offset_us
+    assert placed.n_pairs == 3 * N_MB - 6 and abs(placed.offset_us - true) <= 1.5
+    split = program_spans.idle_split_us(profile, placed)
+    assert split == pytest.approx({k: v * N_MB for k, v in WANT.items()}, abs=2 * 1.5 * N_MB)
+
+
+def test_more_than_a_quarter_of_the_pairs_late_gives_no_number():
+    late = (0, 3, 5, 9, 13, 17, 22)
+    assert program_spans.place(_profile(late=60.0, late_pairs=late), _program()) is None
 
 
 def test_the_program_span_names_are_not_the_benchmarks():

@@ -73,7 +73,7 @@ def test_a_cell_config_and_metric_added_as_files_are_found(tmp_path):
     """A later change adds a traffic mix, a cell's limits and a per-layer
     metric as new files and new BENCHMARK.json entries: the harness finds
     them, and no file it already had changes."""
-    for sub in ("configs", "traffic", "limits", "metrics"):
+    for sub in ("configs", "traffic", "limits", "metrics", "families"):
         shutil.copytree(ROOT / "perfbench" / sub, tmp_path / "perfbench" / sub)
     before = _digest(tmp_path / "perfbench")
     bench = json.loads(json.dumps(BENCH))
