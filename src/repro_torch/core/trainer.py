@@ -1238,6 +1238,7 @@ class ElasticTrainer:
                     state, plan, b_slots)
 
         with trace.span("trainer.barrier"):
+            trace.file_tallies()
             if measure:
                 self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
             replicas, momentum, guard_repaired = self._guard(state, replicas, momentum)
@@ -1293,6 +1294,7 @@ class ElasticTrainer:
             # device (the collect waited for them all): reusable two
             # stagings on
             self._staging.release(staged.slot_id)
+            trace.file_tallies()
             if measure:
                 self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
             # ---- non-finite guard, then the merge (the barrier) ----

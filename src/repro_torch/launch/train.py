@@ -3,7 +3,9 @@
 Port of ``repro/launch/train.py``: any registered algorithm trains the
 paper's 3-layer sparse MLP on synthetic XML data (``--workload xml``) or a
 decoder-only LM architecture on a synthetic token stream (``--workload
-lm``, the default, with ``--arch`` default tinyllama-1.1b; the stream
+lm``, the default, with ``--arch`` default tinyllama-1.1b, any ``ARCHS``
+entry or the port-only moonlight-16b-a3b of ``configs/moonlight_16b_a3b.py``,
+whose selection bias is drawn from ``--seed``; the stream
 carries no ``frames`` or ``patch_embeds``, so seamless-m4t and internvl2
 stop with the reference's ``KeyError``), with the same
 flags, defaults and log lines as the reference (the subset this port
@@ -59,7 +61,7 @@ import os
 import torch
 
 from repro_torch.checkpoint.store import CheckpointManager
-from repro_torch.configs.archs import ARCHS
+from repro_torch.configs.moonlight_16b_a3b import ARCH_TABLE, arch
 from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import algorithms
 from repro_torch.core.fleet import FleetController, HeartbeatMonitor, parse_fault_spec
@@ -125,11 +127,11 @@ def build_xml_workload(args):
 
 
 def build_lm_workload(args):
-    cfg = ARCHS[args.arch]
+    cfg = arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     provider = TokenProvider.make(cfg.vocab_size, args.seq_len, seed=args.seed)
-    model = MDL.make_model(cfg)
+    model = MDL.make_model(cfg, MDL.init_buffers(cfg, torch.Generator().manual_seed(args.seed)))
     test_batches = provider.test_batches(2, args.b_max)
     return model, provider, test_batches
 
@@ -137,7 +139,8 @@ def build_lm_workload(args):
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="lm", choices=["xml", "lm"])
-    ap.add_argument("--arch", default="tinyllama-1.1b", choices=list(ARCHS))
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=list(ARCH_TABLE),
+                    help="an ARCHS entry, or a port-only one (moonlight-16b-a3b)")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced config (CPU smoke)")
     ap.add_argument("--algorithm", default="adaptive", choices=list(algorithms.available()),

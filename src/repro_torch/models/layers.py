@@ -1,5 +1,6 @@
 """Shared transformer layers: RMSNorm, RoPE, GQA attention (blockwise online
-softmax, the flash kernel, one-token decode), SwiGLU MLP, embeddings.
+softmax, the flash kernel, one-token decode), latent attention (MLA), SwiGLU
+MLP, embeddings.
 
 Port of ``repro/models/layers.py``. Every layer is a plain function over a
 dict of tensors, with the reference's parameter names and layouts
@@ -18,6 +19,12 @@ materialized; q is reshaped to (B, S, Hkv, rep, hd) against the raw KV):
 
 Cross-attention (the encoder-decoder family) always takes the blockwise
 path: the reference's cross call passes no ``use_flash``.
+
+Latent attention (``mla_layer``, the Moonlight config's mixer; the reference
+has none) trains through ``scaled_dot_product_attention`` (``mla_attention``):
+its q/k heads (192) are wider than its v heads (128), which the flash kernel
+and ``blockwise_attention``'s one head dim do not take, and at 4,096 tokens
+the blockwise path's saved chunk scores would not fit.
 
 Partitioned (DTensor inputs under a sharding context): the attention math
 runs on each rank's own batch rows and query heads as plain tensors
@@ -43,6 +50,7 @@ from repro_torch.sharding.annotate import (
     placements_for,
     shard,
 )
+from repro_torch.utils import trace
 
 # --------------------------------------------------------------------------
 # init helpers
@@ -355,6 +363,81 @@ def _decode_core(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     p = torch.softmax(s, dim=-1).to(cache_v.dtype)
     o = torch.einsum("bhrs,bshk->bhrk", p.float(), cache_v.float())
     return o.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# latent attention (MLA; port-only: the reference has none)
+# --------------------------------------------------------------------------
+
+
+def init_mla(generator, d_model: int, n_heads: int, kv_rank: int, nope: int, rope: int,
+             v_dim: int, dtype):
+    """DeepSeek-V3's latent attention without query compression: ``wq``
+    (D, H, nope + rope), ``wkv_a`` (D, kv_rank + rope) into the latent and
+    the one rotary key every head shares, ``kv_norm`` (kv_rank,) on the
+    latent, ``wkv_b`` (kv_rank, H, nope + v) out of it, ``wo`` (H, v, D)."""
+    s = d_model ** -0.5
+    return {
+        "wq": ninit(generator, (d_model, n_heads, nope + rope), s, dtype),
+        "wkv_a": ninit(generator, (d_model, kv_rank + rope), s, dtype),
+        "kv_norm": torch.zeros((kv_rank,), dtype=dtype, device=generator.device),
+        "wkv_b": ninit(generator, (kv_rank, n_heads, nope + v_dim), kv_rank ** -0.5, dtype),
+        "wo": ninit(generator, (n_heads, v_dim, d_model), (n_heads * v_dim) ** -0.5, dtype),
+        "norm": torch.zeros((d_model,), dtype=dtype, device=generator.device),
+    }
+
+
+# HF deepseek_v3 builds kv_a_layernorm with its RMSNorm's default eps
+MLA_KV_NORM_EPS = 1e-6
+
+
+def apply_rope_pairs(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """RoPE in HF deepseek_v3's interleaved pair layout: the pairs (x[2i],
+    x[2i+1]) rotate by position * theta^(-2i/d), and the result is laid out
+    as [rotated evens, rotated odds] (HF's ``view(..., d // 2, 2)
+    .transpose``). The layout is the same for q and k, so their products
+    are those of an in-place rotation."""
+    return apply_rope(torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1), positions, theta)
+
+
+def mla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Causal attention with q/k heads wider than v's: q, k (B, S, H, dqk),
+    v (B, S, H, dv) -> (B, S, H, dv). ``scaled_dot_product_attention``, its
+    flash path in bf16 on the card (with a backward): v zero-padded to dqk
+    and the output sliced back to dv, which is exact (the padded columns
+    of p @ v are zeros)."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    if dv < dqk:
+        v = F.pad(v, (0, dqk - dv))
+    o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                       is_causal=True, scale=scale)
+    return o.transpose(1, 2)[..., :dv]
+
+
+def mla_layer(params: dict, x: torch.Tensor, *, kv_rank: int, nope: int, rope: int,
+              v_dim: int, rope_theta: float, norm_eps: float = 1e-5) -> torch.Tensor:
+    """Pre-norm latent-attention block: x + W_o attn(norm(x)).
+
+    q = W_q h per head as [q_nope, q_pe]; [c, k_pe] = W_kva h;
+    c = RMSNorm(c); [k_nope, v] = W_kvb c per head; RoPE (``apply_rope_pairs``)
+    on q_pe and on the one k_pe all heads share; k = [k_nope, k_pe];
+    causal softmax at scale (nope + rope)^-0.5 (``mla_attention``)."""
+    b, s, _ = x.shape
+    h = rmsnorm(x, params["norm"], norm_eps)
+    q = _heads(h, params["wq"])                                         # (B,S,H,nope+rope)
+    n_heads = q.shape[2]
+    q_nope, q_pe = q.split([nope, rope], dim=-1)
+    c, k_pe = (h @ params["wkv_a"]).split([kv_rank, rope], dim=-1)
+    c = rmsnorm(c, params["kv_norm"], MLA_KV_NORM_EPS)
+    k_nope, v = _heads(c, params["wkv_b"]).split([nope, v_dim], dim=-1)
+    positions = torch.arange(s, device=x.device)
+    q_pe = apply_rope_pairs(q_pe, positions, rope_theta)
+    k_pe = apply_rope_pairs(k_pe[:, :, None, :], positions, rope_theta)  # (B,S,1,rope)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(b, s, n_heads, rope)], dim=-1)
+    with trace.span("mla.attention"):
+        o = mla_attention(q, k, v, (nope + rope) ** -0.5)
+    return x + _merge_heads(o, params["wo"])
 
 
 # --------------------------------------------------------------------------

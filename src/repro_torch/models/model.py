@@ -19,6 +19,15 @@ are prepended to the token embeddings, and the loss skips their
 positions. Decoding sees neither, as in the reference: the cache's
 ``cross_kv`` holds zeros, and decode positions start at 0.
 
+Latent attention (port-only; the reference has none): a config from
+``configs/moonlight_16b_a3b.py`` (``is_mla``) takes MLA mixers
+(``layers.mla_layer``), dense layers of ``dense_d_ff`` and dropless
+sigmoid-routed MoE layers with shared experts over the experts it holds
+(``moe.moe_layer_dropless``), whose fixed selection bias is a buffer beside
+the trained leaves (``init_buffers``). It trains only: prefill and
+decoding refuse it (``refuse_mla``), and so does the partitioned program
+(``sharding.rules.MeshAxes``).
+
 Training runs with the kernel flags off: the LM kernels are forward-only,
 here as in the reference, whose ``jax.grad`` cannot differentiate them.
 ``make_model`` refuses a config with a flag on, and each kernel's wrapper
@@ -29,6 +38,7 @@ API:
     params_from_jax(np_params, device, dtype=None) -> params
     loss_fn(cfg, params, batch) -> (loss, aux)           # training
     make_model(cfg) -> TrainableModel over the flattened tree
+    init_buffers(cfg, generator) -> fixed non-trained tensors (MLA's bias)
     prefill(cfg, params, batch) -> last-position logits (B, 1, V)
     init_cache(cfg, batch, max_len, window, device) -> cache
     decode_step(cfg, params, cache, tokens) -> (logits (B, 1, V), cache)
@@ -147,9 +157,57 @@ def _remat(cfg: ModelConfig, body):
 # --------------------------------------------------------------------------
 
 
+def is_mla(cfg) -> bool:
+    """A latent-attention config (``configs/moonlight_16b_a3b.py``): MLA
+    mixers, dropless sigmoid-routed experts with shared ones."""
+    return getattr(cfg, "kv_lora_rank", 0) > 0
+
+
+def refuse_mla(cfg, what: str) -> None:
+    """Raise a ``ValueError`` naming what serving (``what``: prefill or
+    decoding) lacks for a latent-attention config; other configs pass."""
+    if is_mla(cfg):
+        raise ValueError(
+            f"{cfg.name}: {what} of a latent-attention (MLA) config needs a cache of the "
+            "compressed KV latent and its rotary key, and a prefill kernel for q/k heads of "
+            f"{cfg.qk_head_dim} against v heads of {cfg.v_head_dim} (kernels/flash_attention "
+            "takes one head dim of at most 128), which the port does not have; the config "
+            "trains only (loss_fn, make_model)")
+
+
+def init_buffers(cfg, generator: torch.Generator) -> dict:
+    """The fixed tensors a config's loss reads beside its trained leaves,
+    as a flat dict keyed like the parameters: for a latent-attention
+    config, each MoE layer's selection bias (``e_score_correction_bias``)
+    over all ``n_experts``, normal at ``cfg.score_bias_std``, in f32 on the
+    generator's device, ``score_bias`` beside the layer's router. The loss
+    has no gradient for it, and training leaves it as drawn. Empty for
+    every other config."""
+    if not is_mla(cfg):
+        return {}
+    pattern = layer_pattern(cfg)
+    prefix, period = find_prefix_period(pattern)
+    n_groups = _n_groups(cfg, prefix, period)
+
+    # the leading layers are the dense ones: every MoE layer is in the blocks
+    return {f"blocks.pos{j}.ffn.score_bias":
+            torch.randn((max(n_groups, 1), cfg.n_experts), generator=generator,
+                        device=generator.device) * cfg.score_bias_std
+            for j in range(period) if pattern[prefix + j][1] == "moe"}
+
+
 def init_sublayers(cfg: ModelConfig, generator, kind: str, ffn_kind: str) -> dict:
     dt = _dtype(cfg)
     p: dict = {}
+    if kind == "mla":
+        p["mixer"] = L.init_mla(generator, cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
+                                cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, dt)
+        if ffn_kind == "moe":
+            p["ffn"] = MOE.init_moe_dropless(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                             cfg.n_held, cfg.n_shared_experts, dt)
+        else:
+            p["ffn"] = L.init_mlp(generator, cfg.d_model, cfg.dense_d_ff, dt)
+        return p
     if kind == "attn":
         p["mixer"] = L.init_attention(
             generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, dt
@@ -176,9 +234,22 @@ def apply_sublayers(
     params: dict,
     x: torch.Tensor,
     cross: Optional[tuple] = None,  # (cross_params, encoder_memory)
+    rows_valid: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Train/prefill path: mixer -> [cross-attn] -> ffn. Returns (x, aux)."""
+    """Train/prefill path: mixer -> [cross-attn] -> ffn. Returns (x, aux).
+    ``rows_valid`` (B,): the batch rows that hold a sample; a dropless MoE
+    layer routes no other row to its experts (read by MLA configs only)."""
     aux = torch.zeros((), device=x.device)
+    if kind == "mla":
+        x = L.mla_layer(params["mixer"], x, kv_rank=cfg.kv_lora_rank,
+                        nope=cfg.qk_nope_head_dim, rope=cfg.qk_rope_head_dim,
+                        v_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
+        if ffn_kind == "moe":
+            return MOE.moe_layer_dropless(
+                params["ffn"], x, top_k=cfg.top_k, first_expert=cfg.first_expert,
+                scale=cfg.routed_scaling_factor, norm_topk_prob=cfg.norm_topk_prob,
+                norm_eps=cfg.norm_eps, rows_valid=rows_valid)
+        return L.mlp_layer(params["ffn"], x, cfg.norm_eps), aux
     if kind == "attn":
         x = L.attention_layer(
             params["mixer"], x,
@@ -302,7 +373,7 @@ def _run_encoder(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.
 
 
 def _trunk(cfg: ModelConfig, params: dict, x: torch.Tensor,
-           memory: Optional[torch.Tensor] = None):
+           memory: Optional[torch.Tensor] = None, rows_valid: Optional[torch.Tensor] = None):
     """Apply the prefix layers, then each group of the periodic blocks, the
     groups under activation checkpointing when ``cfg.remat`` is on and
     autograd records (the prefix layers are not, as in the reference).
@@ -318,13 +389,15 @@ def _trunk(cfg: ModelConfig, params: dict, x: torch.Tensor,
     x = L.residual(x)
     aux_total = torch.zeros((), device=x.device)
     for i in range(prefix):
-        x, aux = apply_sublayers(cfg, *pattern[i], params["prefix"][i], x, cross(i))
+        x, aux = apply_sublayers(cfg, *pattern[i], params["prefix"][i], x, cross(i),
+                                 rows_valid)
         aux_total = aux_total + aux
     blocks = [_unbind(params["blocks"][f"pos{j}"]) for j in range(period)]
 
     def body(x, aux_acc, group, crosses):
         for j in range(period):
-            x, aux = apply_sublayers(cfg, *pattern[prefix + j], group[j], x, crosses[j])
+            x, aux = apply_sublayers(cfg, *pattern[prefix + j], group[j], x, crosses[j],
+                                     rows_valid)
             aux_acc = aux_acc + aux
         return x, aux_acc
 
@@ -425,7 +498,9 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     memory = _memory(cfg, params, batch)
     x, n_vis = _embed_inputs(cfg, params, batch)
     x = shard(x, "replica", "batch", "seq", None)
-    x, moe_aux = _trunk(cfg, params, x, memory)
+    # a padded row's loss is masked: a dropless MoE layer skips its experts
+    valid = batch["sample_mask"].bool() if is_mla(cfg) else None
+    x, moe_aux = _trunk(cfg, params, x, memory, valid)
     if n_vis:
         x = x[:, n_vis:]
     logits = _logits(cfg, params, x)
@@ -444,7 +519,9 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
 def prefill(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Full-sequence forward over ``batch["tokens"]`` (B, S) (and the
     frontend's ``frames`` or ``patch_embeds``), returning the last
-    position's logits (B, 1, V) in f32."""
+    position's logits (B, 1, V) in f32. Refuses a latent-attention config
+    (``refuse_mla``)."""
+    refuse_mla(cfg, "prefill")
     memory = _memory(cfg, params, batch)
     x, _ = _embed_inputs(cfg, params, batch)
     x, _ = _trunk(cfg, params, x, memory)
@@ -477,7 +554,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
     """window > 0 => rolling attention buffers of that size. ``cur_len``
     is a Python int: the number of tokens the cache holds. With an encoder,
     ``cross_kv`` holds one (B, frontend_len, Hkv, hd) K/V pair of zeros a
-    decoder layer, as in the reference, where nothing writes it."""
+    decoder layer, as in the reference, where nothing writes it. Refuses a
+    latent-attention config (``refuse_mla``)."""
+    refuse_mla(cfg, "decoding")
     pattern = layer_pattern(cfg)
     prefix, period = find_prefix_period(pattern)
     n_groups = _n_groups(cfg, prefix, period)
@@ -538,6 +617,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tenso
     """One-token decode against the cache. tokens (B, 1). Every cache leaf
     is updated in place (the reference returns a new cache); returns
     (logits (B,1,V) f32, cache) with ``cur_len`` advanced by one."""
+    refuse_mla(cfg, "decoding")
     pattern = layer_pattern(cfg)
     prefix, period = find_prefix_period(pattern)
     cur = cache["cur_len"]
@@ -566,7 +646,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tenso
 # --------------------------------------------------------------------------
 
 
-def make_model(cfg: ModelConfig) -> TrainableModel:
+def make_model(cfg: ModelConfig, buffers: Optional[dict] = None) -> TrainableModel:
     """The LM as the trainer takes it: parameters as a flat dict keyed by
     path (``utils.tree.flatten``), so the trainer, the SGD update and the
     merge see one leaf per stacked tensor. ``loss_fn`` takes one model and
@@ -576,17 +656,31 @@ def make_model(cfg: ModelConfig) -> TrainableModel:
     ``frames`` or ``patch_embeds`` (R, B, F, Fd) among them (the MoE
     dispatch's data-dependent sort and ``index_put`` do not vectorize). No ``sparse_grad_fn``: the trainer
     takes dense autograd, as the reference does for the LM. Refuses a
-    config with a kernel flag on (``refuse_kernel_flags``)."""
+    config with a kernel flag on (``refuse_kernel_flags``).
+
+    ``buffers`` (flat, keyed like the parameters): fixed tensors the loss
+    reads beside the trained leaves, shared by every replica and copied to
+    the batch's device once (``init_buffers``; for a latent-attention
+    config drawn from seed 0 when not given)."""
     refuse_kernel_flags(cfg)
+    if buffers is None:
+        buffers = init_buffers(cfg, torch.Generator().manual_seed(0))
+    placed: dict = {}
+
+    def fixed(device) -> dict:
+        if device not in placed:
+            placed[device] = {k: v.to(device) for k, v in buffers.items()}
+        return placed[device]
 
     def init_flat(generator: torch.Generator) -> dict:
         return tu.flatten(init(cfg, generator))
 
     def flat_loss(flat: dict, batch: dict):
+        extra = fixed(batch["tokens"].device)
         if batch["tokens"].ndim == 2:
-            return loss_fn(cfg, tu.unflatten(flat), batch)
+            return loss_fn(cfg, tu.unflatten({**flat, **extra}), batch)
         views = {k: v.unbind(0) for k, v in flat.items()}
-        outs = [loss_fn(cfg, tu.unflatten({k: v[r] for k, v in views.items()}),
+        outs = [loss_fn(cfg, tu.unflatten({**{k: v[r] for k, v in views.items()}, **extra}),
                         {k: v[r] for k, v in batch.items()})
                 for r in range(batch["tokens"].shape[0])]
         return (torch.stack([loss for loss, _ in outs]),

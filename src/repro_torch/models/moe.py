@@ -1,4 +1,6 @@
-"""Mixture-of-Experts FFN: top-k router + sort-based dispatch + grouped FFN.
+"""Mixture-of-Experts FFN: top-k router + sort-based dispatch + grouped FFN;
+and the dropless layer of the Moonlight config (sigmoid router, held
+experts, shared experts; ``moe_layer_dropless``, port-only).
 
 Port of ``repro/models/moe.py``. Tokens are sorted by expert id and
 scattered into an (E, C, D) capacity buffer; the experts' SwiGLU runs as
@@ -35,6 +37,9 @@ tokens and dispatches them alike.
 """
 from __future__ import annotations
 
+import threading
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -47,6 +52,8 @@ from repro_torch.sharding.annotate import (
     placements_for,
     shard,
 )
+
+from repro_torch.utils import trace
 
 from .layers import ninit, residual, rmsnorm
 
@@ -376,3 +383,166 @@ def moe_layer(
         u = h @ gathered(dp["wi"], 1)
         out = out + (g * u) @ gathered(dp["wo"], 0)
     return x + residual(out), aux
+
+
+# --------------------------------------------------------------------------
+# dropless MoE with a sigmoid router and shared experts (DeepSeek-V3 /
+# Moonlight; port-only: the reference has none)
+# --------------------------------------------------------------------------
+
+
+def init_moe_dropless(generator, d_model: int, d_ff: int, n_experts: int, n_held: int,
+                      n_shared: int, dtype):
+    """The router over all ``n_experts`` (f32), the ``n_held`` routed
+    experts this card holds (``wi``/``wg`` (Eh, D, F), ``wo`` (Eh, F, D)),
+    the shared experts as one SwiGLU of ``n_shared * d_ff`` (``shared``) and
+    the pre-norm gain. The selection bias is no leaf here: it is a fixed
+    buffer (``models.model.init_buffers``), ``score_bias`` at apply time."""
+    fs = n_shared * d_ff
+    p = {
+        "router": ninit(generator, (d_model, n_experts), d_model ** -0.5, torch.float32),
+        "wi": ninit(generator, (n_held, d_model, d_ff), d_model ** -0.5, dtype),
+        "wg": ninit(generator, (n_held, d_model, d_ff), d_model ** -0.5, dtype),
+        "wo": ninit(generator, (n_held, d_ff, d_model), d_ff ** -0.5, dtype),
+        "norm": torch.zeros((d_model,), dtype=dtype, device=generator.device),
+    }
+    if n_shared:
+        p["shared"] = {
+            "wi": ninit(generator, (d_model, fs), d_model ** -0.5, dtype),
+            "wg": ninit(generator, (d_model, fs), d_model ** -0.5, dtype),
+            "wo": ninit(generator, (fs, d_model), fs ** -0.5, dtype),
+        }
+    return p
+
+
+def route_sigmoid(router: torch.Tensor, score_bias: torch.Tensor, h: torch.Tensor, top_k: int,
+                  scale: float, norm_topk_prob: bool = True):
+    """HF deepseek_v3's ``noaux_tc`` gate with one group, in f32: s =
+    sigmoid(h W_r) over every expert; the top k of s + b (``score_bias``
+    enters the selection only); weights s of the selected, over their sum
+    (+1e-20) where ``norm_topk_prob``, times ``scale``. Returns (weights,
+    ids), each (T, k)."""
+    s = torch.sigmoid(h.float() @ router.float())
+    _, ids = torch.topk(s + score_bias.float(), top_k, dim=-1)
+    w = s.gather(-1, ids)
+    if norm_topk_prob:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    return w * scale, ids
+
+
+def _load_summary(counts) -> dict:
+    """The counters of the held experts' assignment counts (``trace.tally``)."""
+    return {"assigned": int(counts.sum()), "load_max": int(counts.max()),
+            "load_mean": float(counts.mean())}
+
+
+def grouped_swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor,
+                   counts: torch.Tensor, sizes: list) -> torch.Tensor:
+    """The held experts' SwiGLU over rows grouped by expert: x (n, D) holds
+    ``sizes[e]`` rows of expert e in turn (``counts`` the same on the
+    device). bf16 on the card: three ``torch._grouped_mm`` over the groups'
+    offsets (one launch each, with a backward); otherwise a product an
+    expert."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        offs = counts.cumsum(0).to(torch.int32)
+        g = torch._grouped_mm(x, wg, offs=offs)
+        u = torch._grouped_mm(x, wi, offs=offs)
+        return torch._grouped_mm(F.silu(g) * u, wo, offs=offs)
+    outs = [(F.silu(xe @ wg[e]) * (xe @ wi[e])) @ wo[e]
+            for e, xe in enumerate(x.split(sizes)) if sizes[e]]
+    return torch.cat(outs) if outs else x.new_zeros((0, wo.shape[-1]))
+
+
+_PINNED: dict = {}   # (device, thread) -> a pinned host buffer for the held counts
+
+
+def sort_held(ids: torch.Tensor, first: int, n_held: int,
+              valid: Optional[torch.Tensor] = None):
+    """The (token, slot) assignments of ``ids`` (T, k) to the held experts
+    ``[first, first + n_held)``, of the tokens ``valid`` (T,) keeps,
+    sorted by expert (stably, so by token within one), the rest after
+    them: (order (T k,), counts (n_held,) on the device, ``sizes``).
+    ``sizes()`` waits for the counts' copy to the host, which is issued
+    here, so the caller can queue work that does not need them (the
+    shared experts) before it waits. In a training forward
+    (not a checkpoint's recompute) the counts are also tallied on the
+    device (``trace.tally("moe.load")``)."""
+    local = ids - first
+    held = (local >= 0) & (local < n_held)
+    if valid is not None:
+        held = held & valid[:, None]
+    key = torch.where(held, local, n_held).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    counts = _counts(key, n_held + 1, torch.int64)[:n_held]
+    if torch.is_grad_enabled() and torch._C._current_graph_task_id() == -1:
+        trace.tally("moe.load", counts, _load_summary)
+    if not counts.is_cuda:
+        return order, counts, counts.tolist
+    slot = (counts.device, threading.get_ident())
+    host = _PINNED.get(slot)
+    if host is None or host.numel() != n_held:
+        host = _PINNED[slot] = torch.empty(n_held, dtype=torch.int64, pin_memory=True)
+    host.copy_(counts, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def sizes() -> list:
+        done.synchronize()
+        return host.tolist()
+
+    return order, counts, sizes
+
+
+def held_experts(params: dict, h: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
+                 held: tuple) -> torch.Tensor:
+    """Dropless: sum_{held selected i} w_i SwiGLU_i(h) for every token, in
+    f32 (T, D). The assignments to the held experts, sorted
+    (``held``: ``sort_held``'s result), are gathered, run through
+    ``grouped_swiglu``, weighted, put back at their (token, slot) and
+    summed over the slots in slot order: the same result on every device.
+    Their sizes, which shape the products, are the one host sync a call."""
+    t, k = ids.shape
+    order, counts, sizes = held
+    sizes = sizes()
+    rows = order[:sum(sizes)]
+    tok = torch.div(rows, k, rounding_mode="floor")
+    y = grouped_swiglu(h[tok], params["wi"], params["wg"], params["wo"], counts, sizes)
+    contrib = y * w.reshape(-1)[rows][:, None].float()          # f32
+    out = torch.zeros((t * k, h.shape[-1]), dtype=torch.float32, device=h.device)
+    out.index_copy_(0, rows, contrib)
+    return out.view(t, k, -1).sum(dim=1)
+
+
+def shared_swiglu(p: dict, h: torch.Tensor) -> torch.Tensor:
+    return (F.silu(h @ p["wg"]) * (h @ p["wi"])) @ p["wo"]
+
+
+def moe_layer_dropless(params: dict, x: torch.Tensor, *, top_k: int, first_expert: int,
+                       scale: float, norm_topk_prob: bool = True, norm_eps: float = 1e-5,
+                       rows_valid: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm dropless MoE block: x + sum_{held selected i} w_i
+    SwiGLU_i(h) + SwiGLU_shared(h), h = norm(x); the router (``moe.route``)
+    and the held experts (``moe.experts``) in f32, the shared experts
+    (``moe.shared``) in the model's dtype, queued while the held experts'
+    sizes travel to the host; their sum in f32, cast once.
+    ``rows_valid`` (B,): the batch rows that hold a sample; the others (a
+    masked lockstep slot's padding, whose loss is masked) reach no routed
+    expert. Returns (x', 0): no auxiliary loss (HF's deepseek_v3 computes
+    none)."""
+    b, s, d = x.shape
+    h = rmsnorm(x, params["norm"], norm_eps).reshape(b * s, d)
+    with trace.span("moe.route"):
+        w, ids = route_sigmoid(params["router"], params["score_bias"], h, top_k, scale,
+                               norm_topk_prob)
+        valid = None if rows_valid is None else rows_valid.repeat_interleave(s)
+        held = sort_held(ids, first_expert, params["wi"].shape[0], valid)
+    shared = None
+    if "shared" in params:    # queued before the held experts wait for their sizes
+        with trace.span("moe.shared"):
+            shared = shared_swiglu(params["shared"], h)
+    with trace.span("moe.experts"):
+        y = held_experts(params, h, w, ids, held)
+    if shared is not None:
+        y = y + shared.float()
+    return x + y.view(b, s, d).to(x.dtype), torch.zeros((), device=x.device)

@@ -182,6 +182,12 @@ class MeshAxes:
     """Resolved mesh-axis roles for one (cfg, mesh) pair."""
 
     def __init__(self, cfg, mesh):
+        if getattr(cfg, "kv_lora_rank", 0) > 0:
+            raise ValueError(
+                f"{cfg.name}: the partitioned program of a latent-attention (MLA) config "
+                "needs sharding rules for its leaves (wkv_a, kv_norm, wkv_b, the held "
+                "experts, the shared experts) and a partitioned dropless MoE, which the "
+                "port does not have; it trains on one device a replica (ElasticTrainer)")
         self.mesh = mesh
         self.tp = "model"
         multi_pod = "pod" in mesh_shape(mesh)

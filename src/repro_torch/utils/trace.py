@@ -20,6 +20,12 @@ trace shows each gap on the device under the span the host was in. With no
 session a span costs two clock reads and an append. The profiler records
 per thread, so spans of the executor's workers stay off its timeline.
 
+Tallies are counts a layer adds up on the device, with no host sync
+(:func:`tally`: the MoE layer's assignments a held expert); the trainer
+copies them to the host once a mega-batch, at its barrier, where it has
+already waited for the device, and files them as counters of the
+``trainer.barrier`` span (:func:`file_tallies`).
+
 One recorder serves the process (``RECORDER``; the module's functions use
 it): whoever reads after a run, the launcher or a benchmark, finds every
 trainer's spans without a handle on the trainer.
@@ -115,6 +121,7 @@ class Recorder:
         self._ids = itertools.count(1)
         self._local = threading.local()
         self._lock = threading.Lock()    # the ring's cursor and counters, from several threads
+        self._tallies: dict = {}         # (name, device) -> [accumulator, summary]
 
     def _stack(self) -> list:
         try:
@@ -164,6 +171,35 @@ class Recorder:
             with self._lock:
                 top.counters[key] = top.counters.get(key, 0) + value
 
+    def tally(self, name: str, counts: torch.Tensor, summary=None) -> None:
+        """Add ``counts`` into the accumulator ``name`` on their device,
+        with no host sync. ``summary(array) -> {counter: value}`` turns the
+        sum into the counters :meth:`file_tallies` files (else one counter,
+        ``name``, the total)."""
+        key = (name, counts.device)
+        with self._lock:
+            slot = self._tallies.get(key)
+            if slot is None or slot[0].shape != counts.shape:
+                self._tallies[key] = [counts.detach().clone(), summary]
+            else:
+                slot[0].add_(counts.detach())
+
+    def file_tallies(self) -> None:
+        """Copy each accumulator to the host once (the caller has waited
+        for the device, as the trainer has at its barrier), sum a name's
+        over its devices, add its summary's counters to the innermost open
+        span and start again from zero."""
+        with self._lock:
+            slots, self._tallies = self._tallies, {}
+        sums: dict = {}
+        for (name, _), (acc, summary) in slots.items():
+            host = acc.cpu().numpy()
+            sums[name] = [sums[name][0] + host if name in sums else host, summary]
+        for name, (total, summary) in sums.items():
+            counters = summary(total) if summary is not None else {name: total.sum().item()}
+            for k, v in counters.items():
+                self.add(k, v)
+
     def spans(self) -> list[Span]:
         """The finished spans the ring holds, in the order they ended."""
         cols = self._cols
@@ -196,6 +232,8 @@ span = RECORDER.span
 current = RECORDER.current
 adopt = RECORDER.adopt
 add = RECORDER.add
+tally = RECORDER.tally
+file_tallies = RECORDER.file_tallies
 spans = RECORDER.spans
 clear = RECORDER.clear
 write_jsonl = RECORDER.write_jsonl
