@@ -1,6 +1,7 @@
 """Shared transformer layers: RMSNorm, RoPE, GQA attention (blockwise online
 softmax, the flash kernel, one-token decode), latent attention (MLA), SwiGLU
-MLP, embeddings.
+MLP, embeddings, the LM head (``head_logits``: f32 logits, on bf16 tensor
+cores where the inputs are bf16 on a card).
 
 Port of ``repro/models/layers.py``. Every layer is a plain function over a
 dict of tensors, with the reference's parameter names and layouts
@@ -509,8 +510,111 @@ def _embed_partitioned(table, tokens):
     return DTensor.from_local(rows, mesh, partial, run_check=False).redistribute(mesh, b_pl)
 
 
+# --------------------------------------------------------------------------
+# the LM head
+# --------------------------------------------------------------------------
+
+SPLIT_DEVICES = ("cuda",)   # where bf16 tensor-core GEMMs with an f32 output run
+SPLIT_BYTES = 320 << 20     # the most the backward's bf16 hi + lo rows of dlogits take at once
+# the most terms one backward GEMM sums: a tensor core's f32 accumulator
+# truncates, so its error grows with the depth (on an H100, dx over all of
+# [hi | lo] at 40,960 terms: 6.4e-5 of its norm; in GEMMs of 8,192: 1.0e-5)
+SPLIT_DEPTH = 8192
+
+
+def takes_split(x, w) -> bool:
+    """Whether ``head_logits`` runs the head on bf16 tensor cores: bf16 ``x``
+    and ``w``, plain tensors on a device of ``SPLIT_DEVICES``."""
+    return (x.dtype == w.dtype == torch.bfloat16
+            and x.device.type in SPLIT_DEVICES and w.device.type in SPLIT_DEVICES
+            and not is_dtensor(x) and not is_dtensor(w))
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two bf16 matrices, accumulated and written in f32 (cuBLAS's
+    bf16 tensor-core GEMM): each product of two bf16 values is exact in f32."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def split_rows(vocab: int) -> int:
+    """The rows of dlogits (…, vocab) the backward splits at once: within
+    ``SPLIT_BYTES``, and dW's GEMM over hi's and lo's rows within
+    ``SPLIT_DEPTH``."""
+    return max(1, min(SPLIT_BYTES // (4 * vocab), SPLIT_DEPTH // 2))
+
+
+def head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The f32 logits x (…, D) · w (V, D)ᵀ, in the span ``lm.head`` whose
+    ``path`` says how they were computed.
+
+    ``bf16_split`` (``takes_split``): the forward is one bf16 GEMM with an
+    f32 output, the logits of ``x.float() @ w.float().T`` up to the order of
+    summation; the backward splits the f32 dlogits into bf16 hi + lo
+    (``split_grads``), within 2⁻¹⁶ of it, below the bf16 rounding of both
+    gradients. ``f32`` (f32 or fp16 inputs, DTensors, CPU tensors):
+    ``x.float() @ w.float().T`` as autograd takes it."""
+    split = takes_split(x, w)
+    with trace.span("lm.head", path="bf16_split" if split else "f32"):
+        if split:
+            return HeadLogits.apply(x, w)
+        return x.float() @ w.float().T
+
+
+class HeadLogits(torch.autograd.Function):
+    """``head_logits``' bf16 path through ``mm_f32``. Saves ``x`` and ``w``
+    as they are; each gradient is rounded once to bf16."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return mm_f32(x.reshape(-1, x.shape[-1]), w.T).view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        v = w.shape[0]
+        dx, dw = split_grads(g.reshape(-1, v), x.reshape(-1, x.shape[-1]), w, mm_f32,
+                             split_rows(v), SPLIT_DEPTH)
+        return dx.to(x.dtype).view(x.shape), dw.to(w.dtype)
+
+
+def split_bf16(g: torch.Tensor) -> torch.Tensor:
+    """f32 g (n, V) as bf16 (n, 2, V): [:, 0] hi = bf16(g), [:, 1] lo =
+    bf16(g − hi). g − hi is exact in f32, so hi + lo is g within 2⁻¹⁶ of
+    |g| (bf16's rounding, twice) wherever lo is no subnormal."""
+    hl = torch.empty(g.shape[0], 2, g.shape[1], dtype=torch.bfloat16, device=g.device)
+    hl[:, 0] = g
+    torch.sub(g, hl[:, 0], out=hl[:, 1])
+    return hl
+
+
+def split_grads(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, mm, rows: int, depth: int):
+    """(dx, dw) = (g · w, gᵀ · x) in f32, from f32 g (T, V) and bf16 x (T, D),
+    w (V, D), through ``mm`` (two bf16 matrices' f32 product) on
+    ``split_bf16(g)``, ``rows`` rows of g at a time. A GEMM's f32
+    accumulator adds hi's and lo's products: dx = [hi | lo] · [w; w], in
+    GEMMs over ``depth`` of its 2V columns, their partials added in f32; dw
+    over the chunk's rows interleaved (hi₀, lo₀, hi₁, lo₁, …) against x's
+    rows each taken twice (2 · ``rows`` terms)."""
+    t, v = g.shape
+    dx = g.new_empty(t, x.shape[1])
+    ww = torch.cat([w, w])
+    dw = None
+    for s in range(0, t, rows):
+        hl = split_bf16(g[s:s + rows])
+        n = hl.shape[0]
+        a = hl.view(n, 2 * v)
+        acc = mm(a[:, :depth], ww[:depth])
+        for k in range(depth, 2 * v, depth):
+            acc.add_(mm(a[:, k:k + depth], ww[k:k + depth]))
+        dx[s:s + n] = acc
+        part = mm(hl.view(2 * n, v).T, x[s:s + n].repeat_interleave(2, dim=0))
+        dw = part if dw is None else dw.add_(part)
+    return dx, dw
+
+
 def unembed(params: dict, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
-    logits = x.float() @ gathered(params["table"], 0).float().T
+    logits = head_logits(x, gathered(params["table"], 0))
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

@@ -430,7 +430,7 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return L.unembed(params["embed"], x, cfg.logits_softcap)
-    logits = x.float() @ gathered(params["lm_head"], 0).float().T
+    logits = L.head_logits(x, gathered(params["lm_head"], 0))
     if cfg.logits_softcap > 0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     return logits
