@@ -53,8 +53,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
 4. slice   — the port's trainer on the card against the same trainer on the
    CPU (plain versions), same weights and data, small width: every
    registered algorithm, plus adaptive and sync with dense gradients and
-   adaptive under the legacy_loop engine, 2 mega-batches each; the host
-   decisions must be identical and the losses agree within tolerance.
+   adaptive on the sequential path (overlap off), 2 mega-batches each; the
+   host decisions must be identical and the losses agree within tolerance.
 5. main    — the paper's experiment at Amazon-670K width (135,909 features,
    670,091 classes, hidden 128): Adaptive SGD, R = 4, b_max 256, 3
    mega-batches of 20 batches, with evaluation, through
@@ -138,7 +138,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    relative; launch counts what the plans need; every dispatch-to-collect
    window run under ``torch.cuda.set_sync_debug_mode("error")`` (a host
    sync inside it raises); no staging slot allocated after the second
-   mega-batch. Prints, both ways: the warm mega-batch wall time (median of
+   mega-batch, both ways (the sequential path stages into the same two
+   slots). Prints, both ways: the warm mega-batch wall time (median of
    mega-batches 2-4), the device busy share over one more warm mega-batch
    under the profiler, the host's staging time (plan, pack, upload) and
    bytes a mega-batch, and peak device memory.
@@ -1139,9 +1140,9 @@ def overlap_phase(reset_counts, read_counts, full_model, full_provider, test_bat
           f"(tol {OVERLAP_TOL}; not bitwise: index_add_'s order)")
     if max(l_err, m_err) > OVERLAP_TOL:
         raise RuntimeError("overlap: the pipelined run left the sequential one")
-    allocs = on["allocations"]
+    allocs = {label: run["allocations"] for label, run in runs.items()}
     print(f"overlap staging slots allocated after each mega-batch: {allocs}")
-    if allocs[1] != allocs[-1] or off["allocations"][-1] != 0:
+    if any(a[1] != a[-1] for a in allocs.values()):
         raise RuntimeError(f"overlap: a staging slot was allocated after the second "
                            f"mega-batch ({allocs})")
 
@@ -3180,7 +3181,7 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False,
                            seed=SEED)
     strain, stest = train_test_split(sds, 0.2, seed=SEED)
 
-    def small_run(where, algo, engine, sparse):
+    def small_run(where, algo, overlap, sparse):
         sprov = SparseProvider.make(strain, seed=SEED)
         base = make_model(XMLMLPConfig(**small))
         model = TrainableModel(init=lambda generator: {k: v.clone() for k, v in p0.items()},
@@ -3189,16 +3190,17 @@ def main(only_multiprocess: bool = False, only_encdec: bool = False,
         n_rep = algorithms.get(algo).resolve_n_replicas(4)
         cfg = ElasticConfig.from_bmax(32, algorithm=algo, n_replicas=n_rep, mega_batch=10)
         tr = ElasticTrainer(model, sprov, cfg, base_lr=0.5, seed=SEED, device=where,
-                            engine=engine, sparse_grads=sparse)
+                            overlap=overlap, sparse_grads=sparse)
         state, mlog = tr.run(2, test_batches=sprov.test_batches(stest, 32))
         return mlog.records, {k: v.cpu() for k, v in state.global_model.items()}
 
-    slice_cases = [(a, "scan", True) for a in algorithms.available()] + [
-        ("adaptive", "scan", False), ("sync", "scan", False), ("adaptive", "legacy_loop", True)]
-    for algo, engine, sparse in slice_cases:
-        label = f"{algo}/{engine}/{'sparse' if sparse else 'dense'}"
+    slice_cases = [(a, True, True) for a in algorithms.available()] + [
+        ("adaptive", True, False), ("sync", True, False), ("adaptive", False, True)]
+    for algo, overlap, sparse in slice_cases:
+        label = (f"{algo}/{'overlap' if overlap else 'sequential'}/"
+                 f"{'sparse' if sparse else 'dense'}")
         (gpu_recs, gpu_model), (cpu_recs, cpu_model) = (
-            small_run(where, algo, engine, sparse) for where in ("cuda", "cpu"))
+            small_run(where, algo, overlap, sparse) for where in ("cuda", "cpu"))
         check_host_decisions(f"slice {label} card vs CPU", gpu_recs, cpu_recs)
         # tolerance: f32 sums in other orders (kernels, cuBLAS, and
         # index_add_, whose CUDA atomics add in a nondeterministic order)

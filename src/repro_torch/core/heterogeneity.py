@@ -369,8 +369,8 @@ class ShardWindowTimer:
     The shards mark from their own threads, so the markers and ``take``'s
     swap are lock-guarded, and the first start marker of a shard opens its
     window. ``take`` returns ``None`` whenever the set is incomplete or a
-    window is not positive (the legacy engine marks nothing); the trainer
-    then falls back to the whole window.
+    window is not positive; the trainer then falls back to the whole
+    window.
     """
 
     def __init__(self, timer: Optional[Callable[[], float]] = None):

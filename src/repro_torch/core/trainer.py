@@ -30,19 +30,14 @@ Placements, as in the reference (``cfg.placement``):
     one window per shard (``ShardWindowTimer``). With one shard the
     trajectory is the vmap one's, bitwise on the CPU.
 
-Engines, as in the reference (``ENGINES``):
-
-  * ``scan`` (default) — the plan's payloads are stacked into
-    (n_rounds, R, ...) arrays and uploaded once per mega-batch; a Python
-    loop runs the rounds on the device, each one a batched forward/backward
-    over all R replicas and an in-place SGD update; the per-round loss /
-    accuracy / sample counts reduce on the device with the reference's
-    normalization, and the host reads them once per mega-batch. Rounds are
-    not padded to a power of two: the reference's padding rounds are masked
-    no-ops that only bound XLA recompiles.
-  * ``legacy_loop`` — the reference's per-round host loop, kept as the
-    oracle of the scan engine: one upload per round, and each round's loss
-    and accuracy read on the host and averaged there.
+The engine is the reference's ``scan``: the plan's payloads are stacked
+into (n_rounds, R, ...) arrays and uploaded once per mega-batch; a Python
+loop runs the rounds on the device, each one a batched forward/backward
+over all R replicas and an in-place SGD update; the per-round loss /
+accuracy / sample counts reduce on the device with the reference's
+normalization, and the host reads them once per mega-batch. Rounds are not
+padded to a power of two: the reference's padding rounds are masked no-ops
+that only bound XLA recompiles.
 
 Gradients: the model's row-sparse ``sparse_grad_fn`` when it has one and
 ``sparse_grads`` is True; otherwise dense autograd through ``loss_fn``
@@ -70,7 +65,7 @@ placement a resize or a restore redraws the mesh from the pool and moves
 the state onto it.
 
 Multi-process training (``multihost=``, a ``launch.multihost.
-MultihostContext``; the sharded placement and the scan engine only): every
+MultihostContext``; the sharded placement only): every
 process runs the identical host loop at the *global* R (the same plans,
 b/lr adaptation, speed model and fleet decisions) and holds only its
 contiguous block of replica slots (``_span_slice``) on a process-local
@@ -90,16 +85,17 @@ Membership changes at process grain only: ``remove_replicas`` evicts whole
 process blocks (survivors renumbered first, the local width unchanged, so
 no executor is rebuilt) and ``resize`` refuses.
 
-The overlapped mega-batch pipeline (``overlap=True``, the default; the
-scan engine only, as in the reference): ``run_megabatch`` issues mega-batch
-N's rounds from a pre-staged plan and, before the one host sync that
-collects N's metrics, does N+1's host work while the device runs N: the
-merge-cost clock bump, ``algo.adapt``, then N+1's plan, its fused pack
-into one of two ``StagingBuffers`` slots (pinned on the card) and one
-asynchronous upload on the current stream, queued behind N's rounds. The
-host-stateful steps keep the sequential order (… plan N → clock bump N →
-plan N+1 …), so a run is bitwise the sequential one's on the CPU
-(``overlap=False``, the oracle). A staged plan is revocable:
+Staging, on both paths: the plan, its fused pack into one of two
+``StagingBuffers`` slots (pinned on the card) and one asynchronous upload
+on the current stream; the slot is released at the barrier. The
+overlapped mega-batch pipeline (``overlap=True``, the default):
+``run_megabatch`` issues mega-batch N's rounds from a pre-staged plan and,
+before the one host sync that collects N's metrics, does N+1's host work
+while the device runs N: the merge-cost clock bump, ``algo.adapt``, then
+N+1's staging, queued behind N's rounds. The host-stateful steps keep the
+sequential order (… plan N → clock bump N → plan N+1 …), so a run is
+bitwise the sequential one's on the CPU (``overlap=False``, the oracle:
+stage, rounds, collect, barrier). A staged plan is revocable:
 ``invalidate_prefetch`` rolls the provider, clocks and speed model back
 to the snapshot taken before it was planned (a resize, an eviction, a
 stall's start or end, a restore), and a checkpoint taken while it is
@@ -110,9 +106,8 @@ boundary and collected at the next.
 The speed model behind the scheduler's virtual clock is the simulated
 ``SpeedModel`` (the default) or a ``MeasuredSpeedModel``, which closes the
 paper's §3.1 feedback loop: each mega-batch's window, from ``begin`` just
-before its rounds are issued (the sequential path: before its pack and
-upload) to ``elapsed`` just after their metrics are collected, is
-attributed per replica by its scheduled share
+before its rounds are issued to ``elapsed`` just after their metrics are
+collected, is attributed per replica by its scheduled share
 (``_observe_window``), and the next plan runs on those relative speeds;
 under the sharded placement each shard's own window
 (``ShardWindowTimer``) goes to ``observe_shards`` instead. The timer is
@@ -165,7 +160,6 @@ from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import MetricsLog, log
 
 MERGE_COST = 5e-3  # default virtual seconds charged per merge (the all-reduce)
-ENGINES = ("scan", "legacy_loop")
 PLACEMENTS = ("vmap", "sharded")
 # the trainer's own arrays in a staging slot, beside the provider's fields
 _STAGED_MASK, _STAGED_LR = "_update_mask", "_lr"
@@ -196,14 +190,15 @@ class _PlanView:
 
 @dataclass
 class _StagedMegaBatch:
-    """A prefetched mega-batch: plan, device tensors, and the cursor
-    snapshot that makes it revocable.
+    """A staged mega-batch: plan, device tensors, and (staged ahead) the
+    cursor snapshot that makes it revocable.
 
     ``snapshot`` holds the provider's stream state, the virtual clocks and
     the speed model's state from before the staging plan ran:
     ``invalidate_prefetch`` rolls the trainer back to it, and
     ``checkpoint_payload`` stores it, so a checkpoint taken while this
-    mega-batch is staged restores to replay it.
+    mega-batch is staged restores to replay it. A staging for the
+    mega-batch about to run is never revoked, and takes none.
     """
 
     plan: Any                 # MegaBatchPlan
@@ -214,7 +209,7 @@ class _StagedMegaBatch:
     megabatch_idx: int
     n_replicas: int
     slot_id: int              # its StagingBuffers slot
-    snapshot: dict            # pre-staging cursor state (see above)
+    snapshot: Optional[dict]  # pre-staging cursor state (see above)
 
 
 def _to_device(arrays: dict, device: torch.device, non_blocking: bool = False) -> dict:
@@ -285,14 +280,12 @@ class ElasticTrainer:
     speed: Optional[SpeedModel | MeasuredSpeedModel] = None
     seed: int = 0
     device: Any = None               # None = CUDA (raises without a card)
-    engine: str = "scan"             # 'scan' | 'legacy_loop' (see module doc)
     sparse_grads: bool = True        # use the model's row-sparse grad path if
                                      # it provides one; False = dense autograd
     merge_cost: float = MERGE_COST   # virtual seconds per merge (all-reduce)
     keep_global_copies: bool = True  # False = paper §4 memory-lean merging
     overlap: bool = True             # overlapped mega-batch pipeline (module
-                                     # doc); scan engine only; False = the
-                                     # sequential oracle
+                                     # doc); False = the sequential oracle
     mesh: Any = None                 # replica mesh for cfg.placement='sharded'
                                      # (devices; None = every visible card)
     multihost: Any = None            # launch.multihost.MultihostContext: span
@@ -300,8 +293,6 @@ class ElasticTrainer:
                                      # doc). None = one process.
 
     def __post_init__(self):
-        if self.engine not in ENGINES:
-            raise ValueError(f"engine must be one of {ENGINES}, got {self.engine!r}")
         if self.cfg.placement not in PLACEMENTS:
             raise ValueError(
                 f"cfg.placement must be one of {PLACEMENTS}, got {self.cfg.placement!r}"
@@ -337,8 +328,8 @@ class ElasticTrainer:
         self._eval_batches_key = None    # fingerprint of that list
         self._staged = None              # prefetched _StagedMegaBatch
         self._staging = StagingBuffers(pin_memory=self.device.type == "cuda")
-        # one entry a staged or sequential mega-batch (the scan engine):
-        # host seconds to plan, pack and upload, and the bytes uploaded
+        # one entry a staged mega-batch: host seconds to plan, pack and
+        # upload, and the bytes uploaded
         self.staging_log = collections.deque(maxlen=1024)
 
     # ------------------------------------------------------------------
@@ -347,8 +338,8 @@ class ElasticTrainer:
     def _setup_span(self) -> None:
         """Validate and adopt a multi-process context: this process runs the
         global host loop but holds only its own block of replica slots. The
-        refusals are the reference's: the vmap placement and the legacy
-        engine have no per-shard executors to localize, the process-local
+        refusals are the reference's: the vmap placement has no per-shard
+        executors to localize, the process-local
         mesh is built here, a measured speed model would feed each process
         other factors and fork the plans, and (host span) in-round
         collectives cannot cross the file exchange."""
@@ -356,8 +347,6 @@ class ElasticTrainer:
         span = f"{ctx.spanning}-span multihost"
         if self.cfg.placement != "sharded":
             raise ValueError(f"{span} needs cfg.placement='sharded'")
-        if self.engine != "scan":
-            raise ValueError(f"{span} needs engine='scan'")
         if self.mesh is not None:
             raise ValueError(f"{span} builds its own process-local mesh; do not pass one")
         if isinstance(self.speed, MeasuredSpeedModel):
@@ -985,7 +974,7 @@ class ElasticTrainer:
 
     def _finish_metrics(self, stats) -> tuple[float, float]:
         """A mega-batch's (loss, accuracy) from ``_dispatch_rounds``'s
-        stats: the one host sync of the scan engine. Under a host span the
+        stats: the one host sync of the mega-batch. Under a host span the
         stats are this process's raw per-round sums: the exchange completes
         them over the processes and the host mirrors the normalization in
         f32 (a dead peer contributes nothing: that mega-batch's metrics
@@ -1004,12 +993,12 @@ class ElasticTrainer:
             loss, acc = (torch.stack([stats[:, 0].sum(), stats[:, 1].sum()]) / n_live).tolist()
             return loss, acc
 
-    def _pack_plan(self, grid, lr, b_slots: int, host: Optional[dict] = None):
-        """Each shard's column block of the plan grid, packed: a list of
-        host array dicts (the provider's fields, the update mask under
-        ``_STAGED_MASK``, the shard's learning rates under ``_STAGED_LR``),
-        written into the views ``host[(name, shard)]`` of a staging slot
-        when given; and the whole (n_rounds, R) host mask."""
+    def _pack_plan(self, grid, lr, b_slots: int, host: dict):
+        """Each shard's column block of the plan grid, packed into the views
+        ``host[(name, shard)]`` of a staging slot: a list of host array
+        dicts (the provider's fields, the update mask under
+        ``_STAGED_MASK``, the shard's learning rates under ``_STAGED_LR``);
+        and the whole (n_rounds, R) host mask."""
         lr32 = np.asarray(lr, np.float32)
         packed, masks = [], []
         for s in range(self._n_shards):
@@ -1019,90 +1008,25 @@ class ElasticTrainer:
             rows = self._grows(s)
             sub = [row[rows] for row in grid]
             with trace.span("trainer.pack.shard", shard=s):
-                if host is None:
-                    arrays, mask_np = self.provider.stack_plan(sub, b_slots)
-                    arrays = dict(arrays, **{_STAGED_MASK: mask_np, _STAGED_LR: lr32[rows]})
-                else:
-                    fields = [k for k, i in host
-                              if i == s and k not in (_STAGED_MASK, _STAGED_LR)]
-                    _, mask_np = self.provider.stack_plan(
-                        sub, b_slots, out={k: host[(k, s)].numpy() for k in fields})
-                    host[(_STAGED_MASK, s)].numpy()[...] = mask_np
-                    host[(_STAGED_LR, s)].numpy()[...] = lr32[rows]
-                    arrays = {k: host[(k, s)] for k in fields + [_STAGED_MASK, _STAGED_LR]}
+                fields = [k for k, i in host if i == s and k not in (_STAGED_MASK, _STAGED_LR)]
+                _, mask_np = self.provider.stack_plan(
+                    sub, b_slots, out={k: host[(k, s)].numpy() for k in fields})
+                host[(_STAGED_MASK, s)].numpy()[...] = mask_np
+                host[(_STAGED_LR, s)].numpy()[...] = lr32[rows]
+                arrays = {k: host[(k, s)] for k in fields + [_STAGED_MASK, _STAGED_LR]}
             packed.append(arrays)
             masks.append(mask_np)
         return packed, np.concatenate(masks, axis=1)
 
-    def _upload(self, packed: list, non_blocking: bool = False) -> list:
-        """Each shard's packed arrays onto its device, on its stream:
-        ``[(batches, mask, lr)]`` in shard order."""
+    def _upload(self, packed: list) -> list:
+        """Each shard's packed arrays onto its device, asynchronously on its
+        stream: ``[(batches, mask, lr)]`` in shard order."""
         def one(s):
-            arrays = _to_device(packed[s], self._shard_device(s), non_blocking)
+            arrays = _to_device(packed[s], self._shard_device(s), non_blocking=True)
             mask, lr = arrays.pop(_STAGED_MASK), arrays.pop(_STAGED_LR)
             return arrays, mask, lr
 
         return self._shards(one)
-
-    def _stage_plan(self, state: ElasticState, plan, plan_span) -> tuple[list, np.ndarray]:
-        """The sequential path's staging, inside its ``trainer.stage`` span:
-        lay out the plan's grid and pack it, then upload it once; ``(shards,
-        mask)`` as ``_dispatch_rounds`` takes them."""
-        with trace.span("trainer.pack") as pack:
-            grid = plan.payload_grid(self.cfg.n_replicas)
-            packed, mask_np = self._pack_plan(grid, state.lr, self.cfg.b_max)
-        with trace.span("trainer.upload") as upload:
-            shards = self._upload(packed)
-        self._log_staging(state.megabatch_idx, plan_span, pack, upload,
-                          [a for arrays in packed for a in arrays.values()])
-        return shards, mask_np
-
-    def _log_staging(self, megabatch_idx, plan, pack, upload, arrays) -> None:
-        """One ``staging_log`` entry from the spans of a staging: host
-        seconds to plan, pack and upload, and the bytes uploaded."""
-        self.staging_log.append({
-            "megabatch": int(megabatch_idx),
-            "plan_s": plan.seconds,
-            "pack_s": pack.seconds,
-            "upload_s": upload.seconds,
-            "bytes": int(sum(a.nbytes for a in arrays)),
-        })
-
-    def _run_rounds_legacy(self, state: ElasticState, plan, b_slots: int):
-        """The reference's per-round host loop: one upload per round, empty
-        slots filled with ``provider.empty``, and the loss and accuracy of
-        each round with a live replica read back and averaged on the host
-        (under sharded, each shard runs its rows of the round)."""
-        replicas, momentum = state.replicas, state.momentum
-        lr_np = np.asarray(state.lr, np.float32)
-        lrs = self._shards(
-            lambda s: torch.from_numpy(lr_np[self._rows(s)]).to(self._shard_device(s)))
-        losses, accs = [], []
-        for row in plan.payload_grid(self.cfg.n_replicas):
-            payloads = [p if p is not None else self.provider.empty(b_slots) for p in row]
-            w = np.asarray([1.0 if p is not None else 0.0 for p in row], np.float32)
-            batch_np = self.provider.stack(payloads)
-
-            def one(s, reps, mom, batch_np=batch_np, w=w):
-                rows, dev = self._rows(s), self._shard_device(s)
-                batch = _to_device({k: v[rows] for k, v in batch_np.items()}, dev)
-                reps, mom, loss, aux = self._round(
-                    reps, mom, batch, lrs[s], torch.from_numpy(w[rows]).to(dev),
-                    live=self._live(w[rows]),
-                )
-                return reps, mom, loss, aux["accuracy"]
-
-            outs = self._shards(one, replicas, momentum)
-            replicas = self._layout([o[0] for o in outs])
-            momentum = self._layout([o[1] for o in outs])
-            if w.sum() > 0:
-                loss = np.concatenate([o[2].cpu().numpy() for o in outs])
-                acc = np.concatenate([o[3].cpu().numpy() for o in outs])
-                losses.append(float((loss * w).sum() / w.sum()))
-                accs.append(float((acc * w).sum() / w.sum()))
-        loss = float(np.mean(losses)) if losses else float("nan")
-        acc = float(np.mean(accs)) if accs else float("nan")
-        return replicas, momentum, loss, acc
 
     # ------------------------------------------------------------------
     # non-finite guard
@@ -1186,122 +1110,72 @@ class ElasticTrainer:
 
         ``algo.plan`` → rounds (with ``algo.round_transforms``) →
         non-finite guard → ``algo.merge`` → ``algo.adapt`` → merge-cost
-        accounting. With ``overlap`` on and the scan engine, the pipelined
-        variant runs (module doc); ``prefetch=True`` also stages the next
-        mega-batch (``run`` asks for it on all but the last), and a bare
-        call leaves no staged plan behind. The rounds update
-        ``state.replicas``/``state.momentum`` in place: continue from the
-        returned state only. Its ``trainer.megabatch`` span is the root of
-        the mega-batch's spans (``utils.trace``).
-        """
-        with trace.span("trainer.megabatch", megabatch=int(state.megabatch_idx)):
-            if self.overlap and self.engine == "scan":
-                return self._run_megabatch_overlap(state, bool(prefetch))
-            # a stale prefetch (overlap turned off between calls) must not
-            # leak its advanced cursors into the sequential path
-            if self._staged is not None:
-                self.invalidate_prefetch()
-            return self._run_megabatch_sync(state)
+        accounting. The mega-batch runs from the plan staged ahead for it,
+        or stages its own. With ``overlap`` on, ``algo.adapt`` and the
+        clock bump run while the device runs the rounds, and
+        ``prefetch=True`` also stages the next mega-batch (``run`` asks for
+        it on all but the last; module doc); a bare call leaves no staged
+        plan behind. Off, they run in the barrier, after the merge. The
+        rounds update ``state.replicas``/``state.momentum`` in place:
+        continue from the returned state only. Its ``trainer.megabatch``
+        span is the root of the mega-batch's spans (``utils.trace``).
 
-    def _run_megabatch_sync(self, state: ElasticState) -> tuple[ElasticState, dict]:
-        """Sequential mega-batch: plan → execute → merge, one after another
-        (the oracle of the overlap pipeline)."""
+        Under the pipeline the host-stateful steps keep the sequential
+        path's relative order (… plan N → merge-cost clock bump N → plan
+        N+1 …), and ``merge``, ``adapt`` and the guard are pure functions
+        of (state, plan, device results), so the trajectory is the
+        sequential one's under the simulated speed model. Under a measured
+        one, plan N+1 is made with factors one window stale: window N is
+        observed after the collect."""
         cfg = self.cfg
-        mega_samples = cfg.mega_batch * cfg.b_max
-        b_slots = cfg.b_max
-        scan = self.engine != "legacy_loop"
-
-        def fetch(i, take):
-            payload = self.provider.fetch(take, b_slots)
-            return payload, self.provider.work_units(payload)
-
-        with trace.span("trainer.stage"):
-            with trace.span("trainer.plan") as plan_span:
-                plan = self.algo.plan(self.scheduler, state, mega_samples, fetch)
-            # measured-speed feedback: the window brackets the rounds (the
-            # engines read their metrics back before returning), so the next
-            # plan runs on the relative speeds this one observed
+        idx = int(state.megabatch_idx)
+        with trace.span("trainer.megabatch", megabatch=idx):
+            if not self.overlap:
+                # a stale prefetch (overlap turned off between calls) must
+                # not leak its advanced cursors into the sequential path
+                self.invalidate_prefetch()
+            staged = self._take_staged(state) or self._stage_megabatch(state.b, state.lr, idx)
+            plan = staged.plan
+            # measured-speed feedback: the window brackets the rounds up to
+            # the collect of their metrics
             measure = isinstance(self.speed, MeasuredSpeedModel)
             t_start = self.speed.begin() if measure else None
             if self._shard_timer is not None:
                 self._shard_timer.reset(self._n_shards)
-            if scan:
-                shards, mask_np = self._stage_plan(state, plan, plan_span)
-        if scan:
-            replicas, momentum, stats = self._dispatch_rounds(state, shards, mask_np,
+            replicas, momentum, stats = self._dispatch_rounds(state, staged.shards,
+                                                              staged.mask_host,
                                                               self._live_rows(plan))
+            if self.overlap:
+                # ---- host work overlapped with the rounds on the device ----
+                new_b, new_lr, virtual_time = self._adapt(state, plan)
+                if prefetch:
+                    self._staged = self._stage_megabatch(new_b, new_lr, idx + 1, ahead=True)
+
+            # ---- collect: the one host sync of the mega-batch ----
             train_loss, train_acc = self._finish_metrics(stats)
-        else:
-            with trace.span("trainer.dispatch", rows=plan.n_rounds * self._mesh_width() * b_slots,
-                            live_rows=self._live_rows(plan)):
-                replicas, momentum, train_loss, train_acc = self._run_rounds_legacy(
-                    state, plan, b_slots)
+            with trace.span("trainer.barrier"):
+                # every shard's rounds, the slot's consumers, are done on
+                # the device (the collect waited for them all): reusable
+                self._staging.release(staged.slot_id)
+                trace.file_tallies()
+                if measure:
+                    self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
+                # ---- non-finite guard, then the merge (the barrier) ----
+                replicas, momentum, guard_repaired = self._guard(state, replicas, momentum)
+                outcome = self._merge_barrier(state, plan, replicas)
+                if not self.overlap:
+                    new_b, new_lr, virtual_time = self._adapt(state, plan)
+                return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
+                                              train_loss, train_acc, virtual_time,
+                                              guard_repaired)
 
-        with trace.span("trainer.barrier"):
-            trace.file_tallies()
-            if measure:
-                self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
-            replicas, momentum, guard_repaired = self._guard(state, replicas, momentum)
-            # ---- merge (the barrier) + between-mega-batch adaptation ----
-            outcome = self._merge_barrier(state, plan, replicas)
-            with trace.span("trainer.adapt"):
-                new_b, new_lr = self.algo.adapt(state, plan, cfg)
-                n_merges = self.algo.merges_per_megabatch(plan)
-                self.scheduler.clock.t[:] += self.merge_cost * n_merges
-                virtual_time = float(self.scheduler.clock.t.max())
-            return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
-                                          train_loss, train_acc, virtual_time, guard_repaired)
-
-    def _run_megabatch_overlap(
-        self, state: ElasticState, prefetch: bool
-    ) -> tuple[ElasticState, dict]:
-        """Pipelined mega-batch: issue N's rounds from the staged plan, then
-        do N+1's host work (clock bump → adapt → plan → fused pack →
-        asynchronous upload) before the one host sync that collects N's
-        metrics; the device runs N meanwhile.
-
-        The host-stateful steps keep the sequential path's relative order
-        (… plan N → merge-cost clock bump N → plan N+1 …), and ``merge``,
-        ``adapt`` and the guard are pure functions of (state, plan, device
-        results), so the trajectory is the sequential one's under the
-        simulated speed model. Under a measured one, plan N+1 is made with
-        factors one window stale: window N is observed after the collect."""
-        cfg = self.cfg
-        staged = self._take_staged(state)
-        if staged is None:
-            staged = self._stage_megabatch(state.b, state.lr, int(state.megabatch_idx))
-        plan = staged.plan
-        measure = isinstance(self.speed, MeasuredSpeedModel)
-        t_start = self.speed.begin() if measure else None
-        if self._shard_timer is not None:
-            self._shard_timer.reset(self._n_shards)
-        replicas, momentum, stats = self._dispatch_rounds(state, staged.shards, staged.mask_host,
-                                                          self._live_rows(plan))
-
-        # ---- host work overlapped with the rounds on the device ----
+    def _adapt(self, state, plan):
+        """The merge-cost clock bump and ``algo.adapt``: (new b, new lr, the
+        virtual time after the bump)."""
         with trace.span("trainer.adapt"):
-            n_merges = self.algo.merges_per_megabatch(plan)
-            self.scheduler.clock.t[:] += self.merge_cost * n_merges
-            virtual_time = float(self.scheduler.clock.t.max())
-            new_b, new_lr = self.algo.adapt(state, plan, cfg)
-        if prefetch:
-            self._staged = self._stage_megabatch(new_b, new_lr, int(state.megabatch_idx) + 1)
-
-        # ---- collect: the one host sync of the mega-batch ----
-        train_loss, train_acc = self._finish_metrics(stats)
-        with trace.span("trainer.barrier"):
-            # every shard's rounds, the slot's consumers, are done on the
-            # device (the collect waited for them all): reusable two
-            # stagings on
-            self._staging.release(staged.slot_id)
-            trace.file_tallies()
-            if measure:
-                self._observe_window(plan, cfg.n_replicas, self.speed.elapsed(t_start))
-            # ---- non-finite guard, then the merge (the barrier) ----
-            replicas, momentum, guard_repaired = self._guard(state, replicas, momentum)
-            outcome = self._merge_barrier(state, plan, replicas)
-            return self._megabatch_result(state, plan, outcome, momentum, new_b, new_lr,
-                                          train_loss, train_acc, virtual_time, guard_repaired)
+            self.scheduler.clock.t[:] += self.merge_cost * self.algo.merges_per_megabatch(plan)
+            new_b, new_lr = self.algo.adapt(state, plan, self.cfg)
+            return new_b, new_lr, float(self.scheduler.clock.t.max())
 
     def _guard(self, state, replicas, momentum):
         """The non-finite guard: heal poisoned replicas before the barrier;
@@ -1325,8 +1199,7 @@ class ElasticTrainer:
         """Feed one mega-batch's measurement window to the speed model: the
         shards' own windows (``observe_shards``) when the sharded executors
         marked a complete set, else the whole window, attributed per
-        replica by its scheduled share of the plan (the vmap placement, the
-        legacy engine)."""
+        replica by its scheduled share of the plan (the vmap placement)."""
         windows = self._shard_timer.take() if self._shard_timer is not None else None
         if windows is not None:
             self.speed.observe_shards(
@@ -1339,7 +1212,7 @@ class ElasticTrainer:
 
     def _megabatch_result(self, state, plan, outcome, momentum, new_b, new_lr,
                           train_loss, train_acc, virtual_time, guard_repaired):
-        """(new_state, info) of a mega-batch, for both paths."""
+        """(new_state, info) of a mega-batch."""
         with trace.span("trainer.result"):
             R = self.cfg.n_replicas
             alphas = outcome.alphas if outcome.alphas is not None else np.full(R, 1.0 / R)
@@ -1387,7 +1260,8 @@ class ElasticTrainer:
             ),
         }
 
-    def _stage_megabatch(self, b, lr, megabatch_idx: int) -> _StagedMegaBatch:
+    def _stage_megabatch(self, b, lr, megabatch_idx: int,
+                         ahead: bool = False) -> _StagedMegaBatch:
         """Plan one mega-batch and stage it on the device.
 
         Fetches through the provider's ``fetch_staged`` (XML: ids and work
@@ -1397,9 +1271,11 @@ class ElasticTrainer:
         each array on the current stream: queued behind the rounds already
         issued, so nothing waits on the host. Under sharded the slot holds
         every shard's column block apart, and each is copied to its shard's
-        device on the shard's stream. The cursor snapshot is taken first,
-        which makes the staging revocable (``invalidate_prefetch``) and
-        checkpoint-safe (``checkpoint_payload``).
+        device on the shard's stream. Logs one ``staging_log`` entry. A
+        staging ``ahead`` of its mega-batch (the pipeline's prefetch) takes
+        the cursor snapshot first, which makes it revocable
+        (``invalidate_prefetch``) and checkpoint-safe
+        (``checkpoint_payload``).
         """
         cfg = self.cfg
         R = cfg.n_replicas
@@ -1413,7 +1289,7 @@ class ElasticTrainer:
         with trace.span("trainer.stage", megabatch=int(megabatch_idx)):
             b = np.asarray(b, np.float64).copy()
             lr = np.asarray(lr, np.float64).copy()
-            snapshot = self._cursor_snapshot()
+            snapshot = self._cursor_snapshot() if ahead else None
             with trace.span("trainer.plan") as plan_span:
                 plan = self.algo.plan(self.scheduler, _PlanView(b, lr, megabatch_idx),
                                       mega_samples, fetch)
@@ -1427,10 +1303,16 @@ class ElasticTrainer:
                     spec[(_STAGED_MASK, s)] = ((len(grid), n), np.float32)
                     spec[(_STAGED_LR, s)] = ((n,), np.float32)
                 slot_id, host = self._staging.acquire(spec)
-                packed, mask_np = self._pack_plan(grid, lr, b_slots, host=host)
+                packed, mask_np = self._pack_plan(grid, lr, b_slots, host)
             with trace.span("trainer.upload") as upload:
-                shards = self._upload(packed, non_blocking=True)
-            self._log_staging(megabatch_idx, plan_span, pack, upload, host.values())
+                shards = self._upload(packed)
+            self.staging_log.append({
+                "megabatch": int(megabatch_idx),
+                "plan_s": plan_span.seconds,
+                "pack_s": pack.seconds,
+                "upload_s": upload.seconds,
+                "bytes": int(sum(a.nbytes for a in host.values())),
+            })
         return _StagedMegaBatch(
             plan=plan, shards=shards, mask_host=mask_np,
             b=b, lr=lr, megabatch_idx=int(megabatch_idx), n_replicas=R,
@@ -1790,8 +1672,8 @@ class ElasticTrainer:
         resume from instead of ``init_state``; training continues at the
         checkpointed mega-batch index.
 
-        With the overlap pipeline (``overlap`` and the scan engine), every
-        mega-batch but the last stages the next one, and evaluation is
+        With the overlap pipeline (``overlap``), every mega-batch but the
+        last stages the next one, and evaluation is
         issued at a boundary and collected at the next, then written into
         the record of the mega-batch it belongs to (its progress line waits
         for it); the last is collected before returning.
@@ -1806,7 +1688,6 @@ class ElasticTrainer:
                 log("init", seconds=round(self.init_seconds, 3),
                     params=tu.tree_size(state.replicas) // self._mesh_width())
         mlog = MetricsLog()
-        overlap_active = self.overlap and self.engine == "scan"
         pending_eval = None  # (record to backfill, collector)
 
         def emit_line(record):
@@ -1838,7 +1719,7 @@ class ElasticTrainer:
             # the last mega-batch stages nothing: run ends with every host
             # cursor consumed
             state, info = self.run_megabatch(
-                state, prefetch=overlap_active and mb + 1 < n_megabatches
+                state, prefetch=self.overlap and mb + 1 < n_megabatches
             )
             if checkpoint is not None:
                 checkpoint.maybe_save(self, state)
@@ -1846,7 +1727,7 @@ class ElasticTrainer:
             drain_eval()
             collect = None
             if test_batches is not None and (mb + 1) % eval_every == 0:
-                if overlap_active:
+                if self.overlap:
                     collect = self.evaluate_async(state.global_model, test_batches)
                 else:
                     ev = self.evaluate(state.global_model, test_batches)

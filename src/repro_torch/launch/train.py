@@ -9,8 +9,7 @@ whose selection bias is drawn from ``--seed``; the stream
 carries no ``frames`` or ``patch_embeds``, so seamless-m4t and internvl2
 stop with the reference's ``KeyError``), with the same
 flags, defaults and log lines as the reference (the subset this port
-supports: ``--engine``, ``--overlap``, ``--placement``, ``--speed``, ``--dense-grads``,
-``--arch``,
+supports: ``--overlap``, ``--placement``, ``--speed``, ``--dense-grads``, ``--arch``,
 ``--reduced``, ``--seq-len``, and the elastic-membership, fault and checkpoint flags
 ``--elastic-schedule``, ``--faults``, ``--min-replicas``,
 ``--max-replicas``, ``--timeout-factor``, ``--checkpoint-dir``,
@@ -66,7 +65,7 @@ from repro_torch.configs.base import ElasticConfig
 from repro_torch.core import algorithms
 from repro_torch.core.fleet import FleetController, HeartbeatMonitor, parse_fault_spec
 from repro_torch.core.heterogeneity import MeasuredSpeedModel, SpeedModel
-from repro_torch.core.trainer import ENGINES, PLACEMENTS, ElasticTrainer
+from repro_torch.core.trainer import PLACEMENTS, ElasticTrainer
 from repro_torch.data.providers import SparseProvider, TokenProvider
 from repro_torch.data.sparse import train_test_split
 from repro_torch.data.xml_synth import make_xml_dataset
@@ -145,16 +144,11 @@ def parser() -> argparse.ArgumentParser:
                     help="reduced config (CPU smoke)")
     ap.add_argument("--algorithm", default="adaptive", choices=list(algorithms.available()),
                     help="any algorithm in the core/algorithms registry")
-    ap.add_argument("--engine", default="scan", choices=list(ENGINES),
-                    help="mega-batch executor: device-resident scan (default)"
-                         " or the per-round host loop")
     ap.add_argument("--overlap", default="on", choices=["on", "off"],
                     help="overlapped mega-batch pipeline: stage mega-batch"
                          " N+1 (plan + pack + upload) while N executes, and"
                          " evaluate asynchronously. 'off' is the sequential"
-                         " oracle, bit-identical on the CPU. Only the scan"
-                         " engine pipelines; the legacy engine always runs"
-                         " sequentially")
+                         " oracle, bit-identical on the CPU")
     ap.add_argument("--placement", default="vmap", choices=list(PLACEMENTS),
                     help="replica placement: every replica on one device"
                          " (vmap, default) or split over a replica mesh, a"
@@ -310,7 +304,7 @@ def main(argv=None):
     trainer = ElasticTrainer(
         model=model, provider=provider, cfg=ecfg,
         base_lr=args.lr, speed=speed, seed=args.seed,
-        device=device, engine=args.engine, sparse_grads=not args.dense_grads,
+        device=device, sparse_grads=not args.dense_grads,
         overlap=args.overlap == "on", mesh=mesh, multihost=mh,
     )
     fleet = None

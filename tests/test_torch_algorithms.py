@@ -1,8 +1,10 @@
 """Every algorithm of the reference's registry, in the port's trainer
 against a live reference trainer, on the same dataset and the same
-initial weights (``params_from_jax``): both gradient paths under the scan
-engine, and the ``legacy_loop`` engine for ``adaptive`` and ``sync``; and
-``adaptive`` and ``elastic`` at 1, 2, 3, 5 and 8 replicas on both paths.
+initial weights (``params_from_jax``): both gradient paths through the
+pipeline (``scan``, the default), and through the sequential path
+(``sequential``, ``overlap=False``) for ``adaptive`` and ``sync``; and
+``adaptive`` and ``elastic`` at 1, 2, 3, 5 and 8 replicas on both
+gradient paths.
 
 Host decisions — u, b, lr, alphas, n_rounds, virtual time, perturbation —
 must be identical. Losses, accuracies and the final global model agree
@@ -42,13 +44,13 @@ METRICS = ("train_loss", "train_accuracy", "accuracy", "test_loss")
 
 ALGOS = ("adaptive", "crossbow", "delayed_sync", "elastic", "single", "sync")
 CASES = [(a, "scan", sparse) for a in ALGOS for sparse in (True, False)] + [
-    (a, "legacy_loop", sparse) for a in ("adaptive", "sync") for sparse in (True, False)
+    (a, "sequential", sparse) for a in ("adaptive", "sync") for sparse in (True, False)
 ]
 
 
 def _ids(case):
-    algo, engine, sparse = case
-    return f"{algo}-{engine}-{'sparse' if sparse else 'dense'}"
+    algo, path, sparse = case
+    return f"{algo}-{path}-{'sparse' if sparse else 'dense'}"
 
 
 def _cfg(cls, algo, n_replicas=4):
@@ -56,7 +58,7 @@ def _cfg(cls, algo, n_replicas=4):
     return cls.from_bmax(B_MAX, algorithm=algo, n_replicas=R, mega_batch=MEGA)
 
 
-def _run_port(algo, engine, sparse, p0, n_replicas=4, n_mb=N_MB):
+def _run_port(algo, sparse, p0, n_replicas=4, n_mb=N_MB, overlap=True):
     ds = make_xml_dataset(**DATA)
     train, test = train_test_split(ds, 0.2, seed=0)
     prov = SparseProvider.make(train, seed=0)
@@ -66,17 +68,17 @@ def _run_port(algo, engine, sparse, p0, n_replicas=4, n_mb=N_MB):
         loss_fn=base.loss_fn, sparse_grad_fn=base.sparse_grad_fn, config=base.config,
     )
     tr = ElasticTrainer(model, prov, _cfg(ElasticConfig, algo, n_replicas), base_lr=LR, seed=0,
-                        device="cpu", engine=engine, sparse_grads=sparse)
+                        device="cpu", sparse_grads=sparse, overlap=overlap)
     return tr.run(n_mb, test_batches=prov.test_batches(test, B_MAX))
 
 
-def _run_ref(algo, engine, sparse, n_replicas=4, n_mb=N_MB):
+def _run_ref(algo, sparse, n_replicas=4, n_mb=N_MB, overlap=True):
     ds = jax_make_dataset(**DATA)
     train, test = jax_split(ds, 0.2, seed=0)
     prov = JProvider.make(train, seed=0)
     model = jref.make_model(jref.XMLMLPConfig(n_features=NF, n_classes=NC, hidden=H))
     tr = JTrainer(model, prov, _cfg(JElasticConfig, algo, n_replicas), base_lr=LR, seed=0,
-                  engine=engine, sparse_grads=sparse)
+                  sparse_grads=sparse, overlap=overlap)
     return tr.run(n_mb, test_batches=prov.test_batches(test, B_MAX))
 
 
@@ -113,8 +115,10 @@ def _assert_runs_match(port_run, ref_run, n_mb):
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_algorithm_matches_reference(case, p0):
-    algo, engine, sparse = case
-    _assert_runs_match(_run_port(algo, engine, sparse, p0), _run_ref(algo, engine, sparse), N_MB)
+    algo, path, sparse = case
+    overlap = path == "scan"
+    _assert_runs_match(_run_port(algo, sparse, p0, overlap=overlap),
+                       _run_ref(algo, sparse, overlap=overlap), N_MB)
 
 
 SWEEP = [(a, R, sparse) for a in ("adaptive", "elastic") for R in (1, 2, 3, 5, 8)
@@ -128,8 +132,7 @@ def test_replica_count_matches_reference(case, p0):
     scheduler's grids, Alg. 2's weights and the sparse input layer's (R, B,
     K) slots, two mega-batches against a live reference run."""
     algo, R, sparse = case
-    _assert_runs_match(_run_port(algo, "scan", sparse, p0, R, 2),
-                       _run_ref(algo, "scan", sparse, R, 2), 2)
+    _assert_runs_match(_run_port(algo, sparse, p0, R, 2), _run_ref(algo, sparse, R, 2), 2)
 
 
 @pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])

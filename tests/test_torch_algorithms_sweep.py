@@ -20,5 +20,4 @@ def test_replica_count_matches_reference(case, p0):  # noqa: F811 (p0: a fixture
     post-round hook (crossbow's correction) or a delayed merge
     (delayed_sync)."""
     algo, R, sparse = case
-    _assert_runs_match(_run_port(algo, "scan", sparse, p0, R, 2),
-                       _run_ref(algo, "scan", sparse, R, 2), 2)
+    _assert_runs_match(_run_port(algo, sparse, p0, R, 2), _run_ref(algo, sparse, R, 2), 2)

@@ -9,9 +9,10 @@ scenario and the tolerance).
   reference's does, and a crashed replica never reaches the merge;
 * live runs against the reference, with host decisions, the fleet log,
   losses and model held as in ``test_torch_resize.py``: the scripted
-  scenario under the ``legacy_loop`` engine, the timeout detector, a
-  floor and ceiling on the population, and a seeded probabilistic fault
-  stream, with the run's merges counted at the weighted-merge op.
+  scenario on the sequential path (``overlap=False``), the timeout
+  detector, a floor and ceiling on the population, and a seeded
+  probabilistic fault stream, with the run's merges counted at the
+  weighted-merge op.
 """
 from __future__ import annotations
 
@@ -172,9 +173,10 @@ def _check(port_run, ref_run, algo, calls, schedule, n_mb=E.N_MB):
 
 @pytest.mark.parametrize("case", [("adaptive", True), ("sync", False)],
                          ids=["adaptive-sparse", "sync-dense"])
-def test_legacy_engine_matches_reference(case, merge_counter):
+def test_sequential_path_matches_reference(case, merge_counter):
     algo, sparse = case
-    _check(E.run_port(algo, "legacy_loop", sparse), E.run_ref(algo, "legacy_loop", sparse),
+    _check(E.run_port(algo, trainer=E.port_trainer(algo, sparse, overlap=False)),
+           E.run_ref(algo, trainer=E.ref_trainer(algo, sparse, overlap=False)),
            algo, merge_counter, E.SCHEDULE)
 
 

@@ -3,8 +3,8 @@
 tolerances): Adaptive SGD on four reduced decoder-only families in f32 —
 dense GQA (llama3.2-1b), Mamba2 (mamba2-780m), MoE (moonshot-v1-16b-a3b)
 and the attention/Mamba2/MoE hybrid (jamba-1.5-large-398b) — and in bf16
-on reduced tinyllama-1.1b. The other five algorithms and the
-``legacy_loop`` engine are in ``test_torch_lm_algorithms_baselines.py``."""
+on reduced tinyllama-1.1b. The other five algorithms and the sequential
+path are in ``test_torch_lm_algorithms_baselines.py``."""
 from __future__ import annotations
 
 import pytest

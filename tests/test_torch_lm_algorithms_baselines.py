@@ -1,8 +1,8 @@
 """LM training, the port's trainer against a live reference trainer
 (``tests/torch_lm_runs.py`` has the runs, the settings and the
 tolerances), on reduced llama3.2-1b in f32: the five algorithms of the
-registry besides Adaptive SGD, and Adaptive SGD under the per-round
-``legacy_loop`` engine."""
+registry besides Adaptive SGD, and Adaptive SGD on the sequential path
+(``overlap=False``)."""
 from __future__ import annotations
 
 import pytest
@@ -21,6 +21,6 @@ def test_algorithm_matches_reference(algo):
     assert_runs_match(run_port(algo, ARCH), run_ref(algo, ARCH), F32_TOL)
 
 
-def test_legacy_loop_matches_reference():
-    assert_runs_match(run_port("adaptive", ARCH, "legacy_loop"),
-                      run_ref("adaptive", ARCH, "legacy_loop"), F32_TOL)
+def test_sequential_path_matches_reference():
+    assert_runs_match(run_port("adaptive", ARCH, overlap=False),
+                      run_ref("adaptive", ARCH, overlap=False), F32_TOL)

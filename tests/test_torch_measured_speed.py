@@ -12,8 +12,8 @@ before the rounds, ``elapsed`` just after their metrics are collected).
   permutations and state-dict round trips through both packages' models:
   EMAs, observation counts, window counters and factors identical (both
   run the same float64 numpy arithmetic);
-* trainer parity — ``adaptive``, ``crossbow`` and ``elastic`` on both
-  engines, the pipeline on and off, the XML model and reduced tinyllama:
+* trainer parity — ``adaptive``, ``crossbow`` and ``elastic`` with the
+  pipeline on and off, the XML model and reduced tinyllama:
   per mega-batch the records' host decisions and ``speed.factors`` and
   ``n_obs`` identical to the reference's, losses and the global model
   within rtol 1e-5 / atol 1e-6 (``tests/torch_elastic_runs.py``; the LM
@@ -233,7 +233,7 @@ def assert_speed_rows_equal(rows, jrows):
         np.testing.assert_array_equal(n, jn)
 
 
-def xml_runs(algo, engine="scan", overlap=True, n_mb=N_MB, schedule=None, faults=None,
+def xml_runs(algo, overlap=True, n_mb=N_MB, schedule=None, faults=None,
              timeout_factor=0.0, seed=0):
     """A port and a reference XML run, each with a measured model on the
     same scripted readings; returns both runs, probes and timers."""
@@ -243,10 +243,9 @@ def xml_runs(algo, engine="scan", overlap=True, n_mb=N_MB, schedule=None, faults
         timer = ScriptedTimer(readings(4 * n_mb, seed))
         speed = mod.MeasuredSpeedModel(E._cfg(E.ElasticConfig, algo, E.R0).n_replicas,
                                        timer=timer)
-        tr, test = make(algo, engine, speed=speed)
-        tr.overlap = overlap
+        tr, test = make(algo, speed=speed, overlap=overlap)
         probe = Probe()
-        result = run(algo, engine, n_mb=n_mb, schedule=schedule, faults=faults,
+        result = run(algo, n_mb=n_mb, schedule=schedule, faults=faults,
                      timeout_factor=timeout_factor, trainer=(tr, test), checkpoint=probe)
         out.append((result, probe, timer))
     return out
@@ -261,16 +260,15 @@ def assert_measured_runs_match(runs, n_mb=N_MB):
     assert any(np.any(f != 1.0) for f, _ in probe.rows)
 
 
-CASES = [(a, e, o) for a in ("adaptive", "crossbow", "elastic")
-         for e, o in (("scan", True), ("scan", False), ("legacy_loop", False))]
+CASES = [(a, o) for a in ("adaptive", "crossbow", "elastic") for o in (True, False)]
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}-overlap_{c[2]}")
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-scan-overlap_{c[1]}")
 def test_xml_trainer_matches_reference_under_one_timer(case):
     """Host decisions, factors and observation counts identical every
     mega-batch; losses and the global model within 1e-5."""
-    algo, engine, overlap = case
-    runs = xml_runs(algo, engine, overlap)
+    algo, overlap = case
+    runs = xml_runs(algo, overlap)
     assert_measured_runs_match(runs)
     if algo == "adaptive":
         # the measured factors reached the plans: the update counts differ
@@ -281,7 +279,7 @@ def test_overlap_plans_one_window_stale():
     """Under the pipeline, plan N+1 is made before window N is observed, so
     the pipelined and the sequential run part ways once the measured
     factors move (each held to its reference counterpart above)."""
-    on, off = xml_runs("adaptive", "scan", True), xml_runs("adaptive", "scan", False)
+    on, off = xml_runs("adaptive", True), xml_runs("adaptive", False)
     u_on = [r["u"] for r in on[0][0][1].records]
     u_off = [r["u"] for r in off[0][0][1].records]
     assert u_on[:2] == u_off[:2] and u_on != u_off
@@ -294,7 +292,7 @@ def test_elastic_scenario_under_a_measured_model_matches_reference(overlap):
     eviction), a stall, a preemption, the readmissions and a join. The
     stall is skipped under a measured model (``stall_skipped``, as in the
     reference): its factors come from the timer alone."""
-    runs = xml_runs("adaptive", "scan", overlap, n_mb=E.N_MB, schedule=E.SCHEDULE,
+    runs = xml_runs("adaptive", overlap, n_mb=E.N_MB, schedule=E.SCHEDULE,
                     faults=E.FAULTS)
     assert_measured_runs_match(runs, n_mb=E.N_MB)
     events = runs[0][0][2]
@@ -305,7 +303,7 @@ def test_elastic_scenario_under_a_measured_model_matches_reference(overlap):
 def test_timeout_detector_reads_measured_factors_as_the_reference():
     """The health detector evicts the replica whose measured factor passes
     1.2 times the median, at the same mega-batch in both packages."""
-    runs = xml_runs("adaptive", "scan", True, n_mb=6, timeout_factor=1.2, seed=3)
+    runs = xml_runs("adaptive", True, n_mb=6, timeout_factor=1.2, seed=3)
     assert_measured_runs_match(runs, n_mb=6)
     assert any(e["action"] == "evict" for e in runs[0][0][2])
 

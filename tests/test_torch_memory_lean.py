@@ -9,8 +9,9 @@ barriers have produced both, and from then on as before, in both packages.
 unchanged.
 
 * ``init_state``: no copies, the same initial b and lr;
-* runs of ``adaptive`` and ``elastic`` on both engines and both gradient
-  paths: host decisions exact, losses and the global model within rtol
+* runs of ``adaptive`` and ``elastic`` through the pipeline (``scan``)
+  and the sequential path (``sequential``) on both gradient paths: host
+  decisions exact, losses and the global model within rtol
   1e-5 / atol 1e-6 (``tests/torch_elastic_runs.py``), and the merges
   counted at the op, with and without the momentum term;
 * the resize schedule and every fault kind of ``tests/torch_elastic_runs.
@@ -69,7 +70,7 @@ def test_init_state_keeps_no_copies(algo):
         np.testing.assert_array_equal(s_lean.lr, np.asarray(s.lr))
 
 
-CASES = [(a, e, sp) for a in ("adaptive", "elastic") for e in ("scan", "legacy_loop")
+CASES = [(a, p, sp) for a in ("adaptive", "elastic") for p in ("scan", "sequential")
          for sp in (True, False)]
 
 
@@ -78,16 +79,17 @@ CASES = [(a, e, sp) for a in ("adaptive", "elastic") for e in ("scan", "legacy_l
 def test_memory_lean_run_matches_reference(case, merge_branches):
     """The first two barriers merge without the momentum term (no global,
     then no prev-global), the rest with it: one op call a leaf each."""
-    algo, engine, sparse = case
-    tr, test = E.port_trainer(algo, engine, sparse, **LEAN)
+    algo, path, sparse = case
+    kw = dict(overlap=path == "scan")
+    tr, test = E.port_trainer(algo, sparse, **kw, **LEAN)
     port_run = E.run_port(algo, n_mb=N_MB, schedule=None, faults=None, trainer=(tr, test))
-    jtr, jtest = E.ref_trainer(algo, engine, sparse, **LEAN)
+    jtr, jtest = E.ref_trainer(algo, sparse, **kw, **LEAN)
     ref_run = E.run_ref(algo, n_mb=N_MB, schedule=None, faults=None, trainer=(jtr, jtest))
     E.assert_runs_match(port_run, ref_run, n_mb=N_MB)
     n_leaves = len(port_run[0].global_model)
     assert merge_branches == {"plain": 2 * n_leaves, "momentum": (N_MB - 2) * n_leaves}
     # and the run differs from the one that keeps the copies from the start
-    kept, ktest = E.port_trainer(algo, engine, sparse)
+    kept, ktest = E.port_trainer(algo, sparse, **kw)
     k_state, _, _ = E.run_port(algo, n_mb=N_MB, schedule=None, faults=None,
                                trainer=(kept, ktest))
     assert not torch.equal(k_state.global_model["w1"], port_run[0].global_model["w1"])

@@ -21,9 +21,8 @@ block of two replicas on two CPU shards (global R = 4).
   ``remove_replicas(merge_leavers=False)`` of the same slots.
 * A span checkpoint (process 0 publishes) restores in a single-process port
   trainer and in the reference, and each finishes as the fleet did.
-* The span's refusals: the vmap placement, the legacy engine, a passed
-  mesh, the measured speed model, in-round collectives on the host span,
-  ``resize``.
+* The span's refusals: the vmap placement, a passed mesh, the measured
+  speed model, in-round collectives on the host span, ``resize``.
 """
 from __future__ import annotations
 
@@ -304,14 +303,13 @@ def _tail(mlog, start):
     return out
 
 
-@pytest.mark.parametrize("case", ["vmap", "legacy_loop", "mesh", "measured", "sync"])
+@pytest.mark.parametrize("case", ["vmap", "mesh", "measured", "sync"])
 def test_span_refusals(tmp_path, case):
     mh = ctx(tmp_path, 0)
     base = port.make_model(port.XMLMLPConfig(n_features=16, n_classes=4, hidden=8))
     cfg = ElasticConfig.from_bmax(8, algorithm="sync" if case == "sync" else "adaptive",
                                   n_replicas=4, placement="vmap" if case == "vmap" else "sharded")
-    kw = dict(engine="legacy_loop" if case == "legacy_loop" else "scan",
-              mesh=["cpu", "cpu"] if case == "mesh" else None,
+    kw = dict(mesh=["cpu", "cpu"] if case == "mesh" else None,
               speed=MeasuredSpeedModel(4) if case == "measured" else None)
     with pytest.raises(ValueError, match="multihost|round_collectives"):
         ElasticTrainer(base, None, cfg, multihost=mh, **kw)

@@ -6,9 +6,8 @@ collected at the next.
 * bit-identity — on the CPU the pipelined run equals the sequential one
   (``overlap=False``) exactly: records, evaluation metrics, virtual time,
   the final global model, replicas, momentum, b and lr; for every
-  registered algorithm on both engines (``legacy_loop`` never pipelines),
-  with evaluation after every mega-batch; and for the LM through
-  ``TokenProvider``;
+  registered algorithm without and with SGD momentum, with evaluation
+  after every mega-batch; and for the LM through ``TokenProvider``;
 * the reference — the pipelined port against a live reference run with its
   own pipeline on (host decisions exact, losses and global model within
   rtol 1e-5 / atol 1e-6: ``tests/torch_elastic_runs.py``), XML and LM, and
@@ -60,8 +59,8 @@ def _strip(records):
     return [{k: v for k, v in r.items() if k not in WALL} for r in records]
 
 
-def _trainer(algo="adaptive", engine="scan", overlap=True, momentum=0.0):
-    tr, test = E.port_trainer(algo, engine, momentum=momentum)
+def _trainer(algo="adaptive", overlap=True, momentum=0.0):
+    tr, test = E.port_trainer(algo, momentum=momentum)
     tr.overlap = overlap
     return tr, test
 
@@ -81,19 +80,18 @@ def _assert_same_state(a, b):
 # bit-identity: the pipelined run against the sequential one
 # --------------------------------------------------------------------------
 
-CASES = [(a, e, 0.0) for a in algorithms.available() for e in ("scan", "legacy_loop")] + [
-    ("adaptive", "scan", 0.9)]
+CASES = [(a, m) for m in (0.0, 0.9) for a in algorithms.available()]
 
 
 @pytest.mark.parametrize(
-    "case", CASES, ids=lambda c: f"{c[0]}-{c[1]}" + ("-momentum" if c[2] else ""))
+    "case", CASES, ids=lambda c: f"{c[0]}-scan" + ("-momentum" if c[1] else ""))
 def test_overlap_bit_identical(case):
     """run(overlap on) == run(overlap off) on the CPU, evaluation after
     every mega-batch (``momentum`` > 0 keeps SGD momentum buffers)."""
-    algo, engine, momentum = case
+    algo, momentum = case
     runs = []
     for overlap in (True, False):
-        tr, test = _trainer(algo, engine, overlap, momentum)
+        tr, test = _trainer(algo, overlap, momentum)
         state, mlog = tr.run(N_MB, test_batches=test, eval_every=1)
         assert tr._staged is None                       # run leaves nothing staged
         runs.append((state, mlog.records))

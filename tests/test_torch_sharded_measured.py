@@ -11,8 +11,7 @@ four CPU shards, the reference's sharded placement on its one CPU device
 mega-batch clock (``begin``/``elapsed``) reads one scripted timer in each,
 as in tests/test_torch_measured_speed.py. Host decisions and the factors
 after every mega-batch must be identical; losses and the global model
-within rtol 1e-5 / atol 1e-6 (tests/torch_elastic_runs.py). Under the
-legacy engine no shard marks a window: both fall back to the whole window.
+within rtol 1e-5 / atol 1e-6 (tests/torch_elastic_runs.py).
 """
 from __future__ import annotations
 
@@ -79,17 +78,16 @@ def _script(trainer, calls):
         setattr(trainer.speed, name, counted)
 
 
-@pytest.mark.parametrize("engine,overlap", [("scan", True), ("scan", False),
-                                            ("legacy_loop", False)])
-def test_shard_windows_drive_the_plans_as_in_the_reference(engine, overlap):
+@pytest.mark.parametrize("overlap", [True, False], ids=["scan-True", "scan-False"])
+def test_shard_windows_drive_the_plans_as_in_the_reference(overlap):
     runs = []
     for package in ("port", "ref"):
         calls, probe = [], Probe()
         if package == "port":
-            tr, test = E.port_trainer("adaptive", engine, mesh=["cpu"] * 4, overlap=overlap,
+            tr, test = E.port_trainer("adaptive", mesh=["cpu"] * 4, overlap=overlap,
                                       speed=MeasuredSpeedModel(4, timer=Clock()))
         else:
-            tr, test = E.ref_trainer("adaptive", engine, placement="sharded", overlap=overlap,
+            tr, test = E.ref_trainer("adaptive", placement="sharded", overlap=overlap,
                                      speed=JMeasuredSpeedModel(4, timer=Clock()))
         _script(tr, calls)
         state, mlog = tr.run(N_MB, test_batches=test, checkpoint=probe)
@@ -97,21 +95,17 @@ def test_shard_windows_drive_the_plans_as_in_the_reference(engine, overlap):
             tr.close()
         runs.append((state, mlog, calls, probe.rows))
     (state, mlog, calls, rows), (jstate, jlog, jcalls, jrows) = runs
-    if engine == "scan":
-        # every shard marked its window: one take and one observe_shards a
-        # mega-batch, the whole-window path never
-        assert calls == jcalls == ["take", "observe_shards"] * N_MB
-    else:
-        assert calls == jcalls == ["none", "observe_plan"] * N_MB
+    # every shard marked its window: one take and one observe_shards a
+    # mega-batch, the whole-window path never
+    assert calls == jcalls == ["take", "observe_shards"] * N_MB
     for rec, jrec in zip(mlog.records, jlog.records):
         for k in E.EXACT:
             assert rec[k] == jrec[k], (rec["megabatch"], k, rec[k], jrec[k])
     for f, jf in zip(rows, jrows):
         np.testing.assert_array_equal(f, jf)
-    if engine == "scan":
-        # the windows reached the plans: shard 2's replica is the slowest
-        assert rows[-1][2] == max(rows[-1]) > 1.5
-        assert mlog.records[-1]["u"][2] == min(mlog.records[-1]["u"])
+    # the windows reached the plans: shard 2's replica is the slowest
+    assert rows[-1][2] == max(rows[-1]) > 1.5
+    assert mlog.records[-1]["u"][2] == min(mlog.records[-1]["u"])
     for k in E.METRICS:
         np.testing.assert_allclose(mlog.column(k), jlog.column(k), err_msg=k, **E.TOL)
     E.assert_state_matches(state, jstate)

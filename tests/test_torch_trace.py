@@ -5,12 +5,13 @@
   ``record_function`` entered only while a profiler records;
 * the trainer — on a tiny XML trainer, every mega-batch gives one of each
   span, on the overlap and the sequential paths, under vmap and on four CPU
-  shards (the legacy engine its own subset); children lie inside their
-  parents and name them, worker spans carry their shard and the dispatch
-  span; all spans of a mega-batch share its index;
+  shards; children lie inside their parents and name them, worker spans
+  carry their shard and the dispatch span; all spans of a mega-batch share
+  its index;
 * the counters — ``staging_log`` is the plan/pack/upload spans' durations
-  to the bit, ``rows``/``live_rows`` the rounds' rows and the plan's
-  samples, ``copy_bytes`` what crossed devices;
+  to the bit, and the sequential path holds one staging slot at a time,
+  ``rows``/``live_rows`` the rounds' rows and the plan's samples,
+  ``copy_bytes`` what crossed devices;
 * the launcher's ``--trace-out``.
 """
 from __future__ import annotations
@@ -42,8 +43,6 @@ ONCE = {"trainer.megabatch", "trainer.stage", "trainer.plan", "trainer.pack",
         "trainer.barrier", "trainer.guard", "trainer.merge", "trainer.merge.norms",
         "trainer.result"}
 PER_SHARD = {"trainer.pack.shard", "trainer.dispatch.shard"}
-# the legacy engine uploads round by round and reads each round back
-LEGACY = ONCE - {"trainer.pack", "trainer.upload", "trainer.collect"}
 
 PARENT = {
     "trainer.stage": "trainer.megabatch", "trainer.plan": "trainer.stage",
@@ -56,11 +55,10 @@ PARENT = {
 }
 
 PATHS = [
-    pytest.param(True, "scan", None, id="overlap-vmap"),
-    pytest.param(False, "scan", None, id="sync-vmap"),
-    pytest.param(True, "scan", CPU4, id="overlap-sharded"),
-    pytest.param(False, "scan", CPU4, id="sync-sharded"),
-    pytest.param(False, "legacy_loop", None, id="legacy-vmap"),
+    pytest.param(True, None, id="overlap-vmap"),
+    pytest.param(False, None, id="sync-vmap"),
+    pytest.param(True, CPU4, id="overlap-sharded"),
+    pytest.param(False, CPU4, id="sync-sharded"),
 ]
 
 
@@ -74,7 +72,7 @@ def _fresh_ring():
     torch.set_num_threads(n)
 
 
-def _trainer(overlap=True, engine="scan", mesh=None):
+def _trainer(overlap=True, mesh=None):
     ds = make_xml_dataset(n_samples=768, n_features=128, n_classes=32, avg_nnz=8, seed=0)
     train, test = train_test_split(ds, 0.2, seed=0)
     provider = SparseProvider.make(train, seed=0)
@@ -82,13 +80,12 @@ def _trainer(overlap=True, engine="scan", mesh=None):
     cfg = ElasticConfig.from_bmax(B_MAX, algorithm="adaptive", n_replicas=R, mega_batch=MEGA,
                                   placement="vmap" if mesh is None else "sharded")
     tr = ElasticTrainer(model, provider, cfg, seed=0, speed=SpeedModel(R, max_gap=0.32, seed=0),
-                        device="cpu" if mesh is None else None, mesh=mesh, engine=engine,
-                        overlap=overlap)
+                        device="cpu" if mesh is None else None, mesh=mesh, overlap=overlap)
     return tr, provider.test_batches(test, B_MAX)
 
 
-def _run(overlap=True, engine="scan", mesh=None):
-    tr, test = _trainer(overlap, engine, mesh)
+def _run(overlap=True, mesh=None):
+    tr, test = _trainer(overlap, mesh)
     try:
         _, mlog = tr.run(N_MB, test_batches=test, eval_every=1)
     finally:
@@ -105,26 +102,25 @@ def _by_megabatch(spans):
     return out
 
 
-@pytest.mark.parametrize("overlap,engine,mesh", PATHS)
-def test_every_megabatch_gives_one_of_each_span(overlap, engine, mesh):
-    tr, records, spans = _run(overlap, engine, mesh)
+@pytest.mark.parametrize("overlap,mesh", PATHS)
+def test_every_megabatch_gives_one_of_each_span(overlap, mesh):
+    tr, records, spans = _run(overlap, mesh)
     n_shards = 1 if mesh is None else len(mesh)
     groups = _by_megabatch(spans)
     assert sorted(groups) == list(range(N_MB))
-    once, per_shard = (LEGACY, set()) if engine == "legacy_loop" else (ONCE, PER_SHARD)
     for mb, group in groups.items():
         names = [s.name for s in group]
-        assert {n: names.count(n) for n in once} == dict.fromkeys(once, 1), mb
-        assert {n: names.count(n) for n in per_shard} == dict.fromkeys(per_shard, n_shards)
-        assert set(names) == once | per_shard
+        assert {n: names.count(n) for n in ONCE} == dict.fromkeys(ONCE, 1), mb
+        assert {n: names.count(n) for n in PER_SHARD} == dict.fromkeys(PER_SHARD, n_shards)
+        assert set(names) == ONCE | PER_SHARD
     evals = [s for s in spans if s.name == "trainer.eval"]
     collects = [s for s in spans if s.name == "trainer.eval.collect"]
     assert len(evals) == len(collects) == N_MB
 
 
-@pytest.mark.parametrize("overlap,engine,mesh", PATHS)
-def test_children_lie_inside_their_parents_and_name_them(overlap, engine, mesh):
-    _, _, spans = _run(overlap, engine, mesh)
+@pytest.mark.parametrize("overlap,mesh", PATHS)
+def test_children_lie_inside_their_parents_and_name_them(overlap, mesh):
+    _, _, spans = _run(overlap, mesh)
     by_id = {s.id: s for s in spans}
     for s in spans:
         if s.name in ("trainer.megabatch", "trainer.eval", "trainer.eval.collect"):
@@ -147,11 +143,8 @@ def test_children_lie_inside_their_parents_and_name_them(overlap, engine, mesh):
             assert by_id[s.parent].name == "trainer.dispatch" and s.shard is not None
 
 
-@pytest.mark.parametrize("overlap,mesh", [(True, None), (False, None), (True, CPU4)])
-def test_staging_log_is_the_staging_spans(overlap, mesh):
-    tr, _, spans = _run(overlap, "scan", mesh)
-    log = list(tr.staging_log)
-    assert [e["megabatch"] for e in log] == list(range(N_MB))
+def _assert_log_is_the_spans(log, spans, n_mb):
+    assert [e["megabatch"] for e in log] == list(range(n_mb))
     for e in log:
         group = [s for s in spans if s.megabatch == e["megabatch"]]
         one = {s.name: s for s in group}
@@ -161,9 +154,48 @@ def test_staging_log_is_the_staging_spans(overlap, mesh):
         assert e["bytes"] > 0
 
 
-@pytest.mark.parametrize("overlap,engine,mesh", PATHS)
-def test_rows_live_rows_and_the_plan_counts(overlap, engine, mesh):
-    _, records, spans = _run(overlap, engine, mesh)
+@pytest.mark.parametrize("overlap,mesh", [(True, None), (False, None), (True, CPU4),
+                                          (False, CPU4)])
+def test_staging_log_is_the_staging_spans(overlap, mesh):
+    tr, _, spans = _run(overlap, mesh)
+    _assert_log_is_the_spans(list(tr.staging_log), spans, N_MB)
+
+
+@pytest.mark.parametrize("mesh", [None, CPU4], ids=["vmap", "sharded"])
+def test_the_sequential_path_reuses_its_staging_slots(mesh):
+    """Overlap off, six mega-batches: each staging finds no other slot in
+    flight (the barrier released the last), no slot is allocated after the
+    first two mega-batches, and each mega-batch logs one staging entry."""
+    n_mb, held, allocations = 6, [], []
+    tr, test = _trainer(False, mesh)
+    acquire = tr._staging.acquire
+
+    def counted(spec):
+        out = acquire(spec)
+        held.append(tr._staging._busy.count(True))
+        return out
+
+    class Probe:
+        def maybe_save(self, trainer, state):
+            allocations.append(trainer._staging.allocations)
+
+        def wait(self):
+            pass
+
+    tr._staging.acquire = counted
+    try:
+        tr.run(n_mb, test_batches=test, checkpoint=Probe())
+    finally:
+        tr.close()
+    assert held == [1] * n_mb
+    assert tr._staging._busy == [False, False]
+    assert allocations[1] == allocations[-1] == 2
+    _assert_log_is_the_spans(list(tr.staging_log), trace.spans(), n_mb)
+
+
+@pytest.mark.parametrize("overlap,mesh", PATHS)
+def test_rows_live_rows_and_the_plan_counts(overlap, mesh):
+    _, records, spans = _run(overlap, mesh)
     groups = _by_megabatch(spans)
     for mb, rec in enumerate(records):
         one = {s.name: s for s in groups[mb]}
@@ -175,7 +207,7 @@ def test_rows_live_rows_and_the_plan_counts(overlap, engine, mesh):
 
 @pytest.mark.parametrize("mesh", [None, CPU4])
 def test_a_merge_on_one_device_copies_nothing_between_devices(mesh):
-    _, _, spans = _run(True, "scan", mesh)
+    _, _, spans = _run(True, mesh)
     merges = [s for s in spans if s.name == "trainer.merge"]
     assert len(merges) == N_MB
     # one device (four CPU shards share it): nothing crosses between cards

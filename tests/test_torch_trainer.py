@@ -132,9 +132,9 @@ def test_launcher_runs_end_to_end_on_cpu(tmp_path):
     assert records == json.loads(json.dumps(mlog.records))
 
 
-def test_launcher_dense_grads_legacy_loop_sync_on_cpu(tmp_path):
-    """--dense-grads --engine legacy_loop --algorithm sync: the same records
-    as the scan engine's sparse run of the same flags."""
+def test_launcher_dense_grads_overlap_off_sync_on_cpu(tmp_path):
+    """--dense-grads --overlap off --algorithm sync: the same records as
+    the pipelined sparse run of the same flags."""
     def run(*extra):
         out = tmp_path / f"log{len(extra)}.json"
         port_train.main([
@@ -146,7 +146,7 @@ def test_launcher_dense_grads_legacy_loop_sync_on_cpu(tmp_path):
         ])
         return json.loads(out.read_text())
 
-    dense = run("--dense-grads", "--engine", "legacy_loop")
+    dense = run("--dense-grads", "--overlap", "off")
     sparse = run()
     assert [r["megabatch"] for r in dense] == [1, 2]
     for a, b in zip(dense, sparse):

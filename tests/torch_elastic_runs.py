@@ -72,7 +72,7 @@ def _cfg(cls, algo, n_replicas, placement="vmap"):
                          placement=placement)
 
 
-def port_trainer(algo, engine="scan", sparse=True, n_replicas=R0, device="cpu", momentum=0.0,
+def port_trainer(algo, sparse=True, n_replicas=R0, device="cpu", momentum=0.0,
                  sgd=None, mesh=None, **trainer_kw):
     """(trainer, test batches) of the port; ``momentum`` > 0 keeps SGD
     momentum buffers, ``sgd`` (an ``SGDConfig``) replaces that config,
@@ -94,11 +94,11 @@ def port_trainer(algo, engine="scan", sparse=True, n_replicas=R0, device="cpu", 
     placement = "vmap" if mesh is None else "sharded"
     tr = ElasticTrainer(model, prov, _cfg(ElasticConfig, algo, n_replicas, placement),
                         sgd=sgd or SGDConfig(momentum=momentum), base_lr=LR, seed=0,
-                        device=device, engine=engine, sparse_grads=sparse, **trainer_kw)
+                        device=device, sparse_grads=sparse, **trainer_kw)
     return tr, prov.test_batches(test, B_MAX)
 
 
-def ref_trainer(algo, engine="scan", sparse=True, n_replicas=R0, momentum=0.0, sgd=None,
+def ref_trainer(algo, sparse=True, n_replicas=R0, momentum=0.0, sgd=None,
                 placement="vmap", **trainer_kw):
     """(trainer, test batches) of the reference; the arguments as
     ``port_trainer``'s, ``sgd`` a reference ``SGDConfig``, ``placement``
@@ -109,7 +109,7 @@ def ref_trainer(algo, engine="scan", sparse=True, n_replicas=R0, momentum=0.0, s
     prov = JProvider.make(train, seed=0)
     model = jref.make_model(jref.XMLMLPConfig(n_features=NF, n_classes=NC, hidden=H))
     tr = JTrainer(model, prov, _cfg(JElasticConfig, algo, n_replicas, placement),
-                  sgd=sgd or JSGDConfig(momentum=momentum), base_lr=LR, seed=0, engine=engine,
+                  sgd=sgd or JSGDConfig(momentum=momentum), base_lr=LR, seed=0,
                   sparse_grads=sparse, **trainer_kw)
     return tr, prov.test_batches(test, B_MAX)
 
@@ -125,18 +125,18 @@ def _run(mod, tr, test, n_mb, schedule, faults, timeout_factor, fleet_kw=None, *
     return state, mlog, (ctl.events if ctl is not None else [])
 
 
-def run_port(algo, engine="scan", sparse=True, n_mb=N_MB, schedule=SCHEDULE, faults=FAULTS,
+def run_port(algo, sparse=True, n_mb=N_MB, schedule=SCHEDULE, faults=FAULTS,
              timeout_factor=0.0, trainer=None, **kw):
     """(state, mlog, fleet events) of a port run; ``fleet_kw`` goes to the
     FleetController, the rest of ``kw`` to ``run``."""
-    tr, test = trainer or port_trainer(algo, engine, sparse)
+    tr, test = trainer or port_trainer(algo, sparse)
     return _run(fleet, tr, test, n_mb, schedule, faults, timeout_factor, **kw)
 
 
-def run_ref(algo, engine="scan", sparse=True, n_mb=N_MB, schedule=SCHEDULE, faults=FAULTS,
+def run_ref(algo, sparse=True, n_mb=N_MB, schedule=SCHEDULE, faults=FAULTS,
             timeout_factor=0.0, trainer=None, **kw):
     """(state, mlog, fleet events) of a reference run."""
-    tr, test = trainer or ref_trainer(algo, engine, sparse)
+    tr, test = trainer or ref_trainer(algo, sparse)
     return _run(jfleet, tr, test, n_mb, schedule, faults, timeout_factor, **kw)
 
 

@@ -94,9 +94,9 @@ def _elastic(cls, algo):
     return cls.from_bmax(B_MAX, algorithm=algo, n_replicas=R, mega_batch=MEGA)
 
 
-def run_port(algo, arch, engine="scan", dtype="float32", mesh=None):
+def run_port(algo, arch, dtype="float32", mesh=None, overlap=True):
     """A port run; ``mesh`` (CPU devices) runs the sharded placement over
-    it."""
+    it, ``overlap=False`` the sequential path."""
     _, tcfg = configs(arch, dtype)
     p0 = init_np(arch, dtype)
     model = TrainableModel(
@@ -109,16 +109,17 @@ def run_port(algo, arch, engine="scan", dtype="float32", mesh=None):
     if mesh is not None:
         cfg = dataclasses.replace(cfg, placement="sharded")
     tr = ElasticTrainer(model, prov, cfg, base_lr=LR, seed=0,
-                        device=None if mesh is not None else "cpu", engine=engine, mesh=mesh)
+                        device=None if mesh is not None else "cpu", mesh=mesh,
+                        overlap=overlap)
     return tr.run(N_MB, test_batches=test)
 
 
-def run_ref(algo, arch, engine="scan", dtype="float32"):
+def run_ref(algo, arch, dtype="float32", overlap=True):
     jcfg, _ = configs(arch, dtype)
     prov = JProvider.make(jcfg.vocab_size, SEQ, seed=0)
     test = prov.test_batches(2, B_MAX)
     tr = JTrainer(JMDL.make_model(jcfg), prov, _elastic(JElasticConfig, algo), base_lr=LR,
-                  seed=0, engine=engine)
+                  seed=0, overlap=overlap)
     return tr.run(N_MB, test_batches=test)
 
 
