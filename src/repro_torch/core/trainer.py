@@ -229,6 +229,14 @@ def _nested(tree: Optional[dict]) -> Optional[dict]:
     return None if tree is None else tu.unflatten(tree)
 
 
+def _json_cursor(cursor):
+    """A provider cursor (``provider.cursor()``) in its ``state_dict``
+    form, as checkpoint metadata stores it: arrays as lists."""
+    if isinstance(cursor, dict):
+        return {k: _json_cursor(v) for k, v in cursor.items()}
+    return cursor.tolist() if isinstance(cursor, np.ndarray) else cursor
+
+
 def dense_value_and_grad(loss_fn, replicas: dict, batch: dict):
     """((loss, aux), grads) of every replica on its own batch, by autograd
     through ``loss_fn`` over the replica-stacked leaves. The leaves share
@@ -328,8 +336,9 @@ class ElasticTrainer:
         self._eval_batches_key = None    # fingerprint of that list
         self._staged = None              # prefetched _StagedMegaBatch
         self._staging = StagingBuffers(pin_memory=self.device.type == "cuda")
-        # one entry a staged mega-batch: host seconds to plan, pack and
-        # upload, and the bytes uploaded
+        # one entry a staged mega-batch: host seconds to snapshot the
+        # cursors (0.0 unless staged ahead), plan, pack and upload, and the
+        # bytes uploaded
         self.staging_log = collections.deque(maxlen=1024)
 
     # ------------------------------------------------------------------
@@ -1246,13 +1255,14 @@ class ElasticTrainer:
     # ------------------------------------------------------------------
     def _cursor_snapshot(self) -> dict:
         """Copies of every host cursor a staging plan advances: the
-        provider's stream (sample RNG and position), the virtual clocks and,
-        for the simulated speed model, whose planning draws jitter, its
-        state. A measured model is not snapshotted (``None``): planning does
-        not change it, and rolling it back would drop windows observed
-        after the snapshot."""
+        provider's stream (sample RNG and position; ``provider.cursor()``,
+        whose sample order is an array, not the ``state_dict`` list), the
+        virtual clocks and, for the simulated speed model, whose planning
+        draws jitter, its state. A measured model is not snapshotted
+        (``None``): planning does not change it, and rolling it back would
+        drop windows observed after the snapshot."""
         return {
-            "provider": copy.deepcopy(self.provider.state_dict()),
+            "provider": self.provider.cursor(),
             "clock_t": np.asarray(self.scheduler.clock.t, np.float64).copy(),
             "speed": (
                 None if isinstance(self.speed, MeasuredSpeedModel)
@@ -1273,7 +1283,8 @@ class ElasticTrainer:
         every shard's column block apart, and each is copied to its shard's
         device on the shard's stream. Logs one ``staging_log`` entry. A
         staging ``ahead`` of its mega-batch (the pipeline's prefetch) takes
-        the cursor snapshot first, which makes it revocable
+        the cursor snapshot first (its ``trainer.snapshot`` span and the
+        entry's ``snapshot_s``), which makes it revocable
         (``invalidate_prefetch``) and checkpoint-safe
         (``checkpoint_payload``).
         """
@@ -1289,7 +1300,11 @@ class ElasticTrainer:
         with trace.span("trainer.stage", megabatch=int(megabatch_idx)):
             b = np.asarray(b, np.float64).copy()
             lr = np.asarray(lr, np.float64).copy()
-            snapshot = self._cursor_snapshot() if ahead else None
+            snapshot, snapshot_s = None, 0.0
+            if ahead:
+                with trace.span("trainer.snapshot") as snap_span:
+                    snapshot = self._cursor_snapshot()
+                snapshot_s = snap_span.seconds
             with trace.span("trainer.plan") as plan_span:
                 plan = self.algo.plan(self.scheduler, _PlanView(b, lr, megabatch_idx),
                                       mega_samples, fetch)
@@ -1308,6 +1323,7 @@ class ElasticTrainer:
                 shards = self._upload(packed)
             self.staging_log.append({
                 "megabatch": int(megabatch_idx),
+                "snapshot_s": snapshot_s,
                 "plan_s": plan_span.seconds,
                 "pack_s": pack.seconds,
                 "upload_s": upload.seconds,
@@ -1459,7 +1475,7 @@ class ElasticTrainer:
         staged = self._staged
         if staged is not None and staged.megabatch_idx == int(state.megabatch_idx):
             snap = staged.snapshot
-            provider_sd = snap["provider"]
+            provider_sd = _json_cursor(snap["provider"])
             clock_t = np.asarray(snap["clock_t"], np.float64)
             if snap["speed"] is not None:
                 speed_sd = snap["speed"]

@@ -3,9 +3,11 @@
 Copied from ``repro/data/batcher.py`` (``SampleStream`` and
 ``SparseBatcher`` with their ``state_dict``/``load_state_dict`` and
 ``next_batch_lazy``, ``stack_replica_batches``, ``stack_plan_grid``,
-``stack_plan_batches``, ``stack_lazy_plan``). ``StagingBuffers`` is the
-reference's, with slots of host ``torch`` tensors (pinned for a CUDA
-trainer) whose leading dim grows in powers of two.
+``stack_plan_batches``, ``stack_lazy_plan``); the port adds ``cursor``,
+the state dict with the sample order as an array, for the trainer's
+prefetch snapshot. ``StagingBuffers`` is the reference's, with slots of
+host ``torch`` tensors (pinned for a CUDA trainer) whose leading dim
+grows in powers of two.
 
 The dynamic scheduler (core/scheduler.py) pulls variable-size batches from a
 ``SampleStream``; a *mega-batch* is a fixed budget of samples between two
@@ -56,6 +58,18 @@ class SampleStream:
             "epoch": int(self.epoch),
         }
 
+    def cursor(self) -> dict:
+        """:meth:`state_dict` with ``order`` an int64 array copy instead of
+        a list: a snapshot independent of the live stream, which costs one
+        array copy where the list form builds a Python int a sample.
+        :meth:`load_state_dict` takes either form."""
+        return {
+            "rng": self.rng.bit_generator.state,
+            "order": np.array(self.order, np.int64),
+            "pos": int(self.pos),
+            "epoch": int(self.epoch),
+        }
+
     def load_state_dict(self, sd: dict) -> None:
         self.rng.bit_generator.state = sd["rng"]
         self.order = np.asarray(sd["order"], np.int64)
@@ -94,6 +108,9 @@ class SparseBatcher:
 
     def state_dict(self) -> dict:
         return {"stream": self.stream.state_dict()}
+
+    def cursor(self) -> dict:
+        return {"stream": self.stream.cursor()}
 
     def load_state_dict(self, sd: dict) -> None:
         self.stream.load_state_dict(sd["stream"])

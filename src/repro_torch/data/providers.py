@@ -3,7 +3,8 @@
 Copied from ``repro/data/providers.py`` (``plan_update_mask``,
 ``SparseProvider`` and ``TokenProvider``, each with the overlap
 pipeline's staging half: ``fetch_staged``, ``staging_spec`` and
-``stack_plan``'s ``out``).
+``stack_plan``'s ``out``); the port adds ``cursor``, the stream state
+the trainer's prefetch snapshots (``ElasticTrainer._cursor_snapshot``).
 
 A provider fetches variable-size batches into fixed-slot payloads, reports
 their work units (nnz / tokens — feeds the virtual clock), and stacks
@@ -11,6 +12,7 @@ per-replica payloads into the (R, ...) arrays of a lockstep round.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,6 +62,11 @@ class SparseProvider:
 
     def state_dict(self) -> dict:
         return self.batcher.state_dict()
+
+    def cursor(self) -> dict:
+        """The stream cursor for the trainer's prefetch snapshot:
+        :meth:`state_dict` with the sample order as an array copy."""
+        return self.batcher.cursor()
 
     def load_state_dict(self, sd: dict) -> None:
         self.batcher.load_state_dict(sd)
@@ -136,6 +143,11 @@ class TokenProvider:
 
     def state_dict(self) -> dict:
         return self.stream.state_dict()
+
+    def cursor(self) -> dict:
+        """The prefetch snapshot's cursor: a copy of the stream's small
+        state (``TokenStream``: its RNG state)."""
+        return copy.deepcopy(self.stream.state_dict())
 
     def load_state_dict(self, sd: dict) -> None:
         self.stream.load_state_dict(sd)

@@ -19,7 +19,11 @@ reference's on-disk format.
   elastic scenario of ``tests/torch_elastic_runs.py``, and reduced
   tinyllama in f32 (``tests/torch_lm_runs.py``);
 * a CPU launcher SIGKILLed after its first published checkpoint resumes
-  from it and continues the uninterrupted trajectory.
+  from it and continues the uninterrupted trajectory;
+* with a mega-batch staged, the checkpoint holds the cursors from before
+  its plan: the reference's, its ``meta.json`` byte for byte a sequential
+  run's (the snapshot's order array written as the ``state_dict`` list),
+  and it restores across the packages.
 """
 from __future__ import annotations
 
@@ -481,6 +485,50 @@ def test_checkpoint_mid_prefetch_stores_the_snapshot_cursors():
         np.testing.assert_array_equal(tree["clock_t"], other_tree["clock_t"])
         for k in tree["speed"]:
             np.testing.assert_array_equal(tree["speed"][k], np.asarray(other_tree["speed"][k]))
+
+
+def test_mid_prefetch_checkpoint_writes_the_snapshot_order_as_a_list(tmp_path):
+    """With mega-batch 2 staged, the snapshot's order array is written as
+    the ``state_dict`` list of Python ints: the metadata is the reference's
+    stream ``state_dict`` at the same cursor, ``meta.json`` is byte for byte
+    the one a sequential run writes at the same point, and a fresh trainer
+    restoring it finishes the writer's run bit for bit."""
+    tr, _ = E.port_trainer("adaptive")
+    oracle, _ = E.port_trainer("adaptive")
+    oracle.overlap = False
+    jtr, _ = E.ref_trainer("adaptive")
+    state, o_state, j_state = tr.init_state(), oracle.init_state(), jtr.init_state()
+    for _ in range(2):
+        state, _ = tr.run_megabatch(state, prefetch=True)
+        o_state, _ = oracle.run_megabatch(o_state)
+        j_state, _ = jtr.run_megabatch(j_state, prefetch=True)
+    order = tr._staged.snapshot["provider"]["stream"]["order"]
+    assert type(order) is np.ndarray
+    paths = {}
+    for name, t, s in (("prefetch", tr, state), ("sequential", oracle, o_state)):
+        mgr = store.CheckpointManager(str(tmp_path / name), every=1)
+        mgr.maybe_save(t, s)
+        mgr.wait()
+        paths[name] = mgr.step_path(2)
+    meta = store.load_metadata(paths["prefetch"])["provider"]
+    listed = meta["stream"]["order"]
+    assert type(listed) is list and all(type(i) is int for i in listed)
+    assert listed == order.tolist()
+    jtr.invalidate_prefetch()                      # the reference's cursor before its plan
+    assert meta == jtr.provider.state_dict()
+    with open(os.path.join(paths["prefetch"], "meta.json"), "rb") as f:
+        written = f.read()
+    with open(os.path.join(paths["sequential"], "meta.json"), "rb") as f:
+        assert written == f.read()
+    fresh, _ = E.port_trainer("adaptive")
+    r_state = fresh.restore_checkpoint(paths["prefetch"])
+    for prefetch in (True, False):
+        state, info = tr.run_megabatch(state, prefetch=prefetch)
+        r_state, r_info = fresh.run_megabatch(r_state, prefetch=prefetch)
+        assert _strip(r_info) == _strip(info)
+    for k in state.replicas:
+        assert torch.equal(r_state.replicas[k], state.replicas[k])
+        assert torch.equal(r_state.global_model[k], state.global_model[k])
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])

@@ -17,8 +17,10 @@ collected at the next.
   come back zeroed, latch, and grow their leading dim in powers of two;
 * the prefetch's life — ports of the reference's ``tests/test_overlap.py``:
   no staged plan is left by default, ``invalidate_prefetch`` rolls the
-  provider, clocks and speed model back to the reference's cursors, a stale
-  plan is discarded, turning overlap off consumes one safely, and
+  provider, clocks and speed model back to the reference's cursors, the
+  snapshot holds the sample order as an array the live stream cannot
+  touch (and the LM provider's is a copy of its RNG state), a stale plan
+  is discarded, turning overlap off consumes one safely, and
   ``evaluate_async`` and ``run``'s backfill agree with the sequential
   evaluation.
 """
@@ -316,6 +318,68 @@ def test_invalidate_prefetch_rolls_cursors_back_as_the_reference():
     o_state, o_info = oracle.run_megabatch(o_state)
     assert _strip([info]) == _strip([o_info])
     _assert_same_state(state, o_state)
+
+
+def test_prefetch_snapshot_holds_an_order_array_the_stream_cannot_touch():
+    """The staged plan's cursor snapshot holds the sample order as an int64
+    array (not the ``state_dict`` list), equal to the sequential oracle's
+    order at the same point; the live stream running on past an epoch end
+    (a reshuffle) leaves it intact, and ``invalidate_prefetch`` from it
+    replays the oracle's sample ids and mega-batch, and the reference's
+    after its own revocation."""
+    tr, _ = _trainer()
+    oracle, _ = _trainer(overlap=False)
+    jtr, _ = E.ref_trainer("adaptive")
+    state, o_state, j_state = tr.init_state(), oracle.init_state(), jtr.init_state()
+    state, _ = tr.run_megabatch(state, prefetch=True)
+    o_state, _ = oracle.run_megabatch(o_state)
+    j_state, _ = jtr.run_megabatch(j_state, prefetch=True)
+    snap = tr._staged.snapshot["provider"]["stream"]
+    o_stream = oracle.provider.batcher.stream
+    assert type(snap["order"]) is np.ndarray and snap["order"].dtype == np.int64
+    np.testing.assert_array_equal(snap["order"], o_stream.order)
+    want = {k: v.copy() if k == "order" else v for k, v in snap.items()}
+    live = tr.provider.batcher.stream
+    assert not np.shares_memory(snap["order"], live.order)
+    epoch = live.epoch
+    live.take(live.n + 1)                             # past an epoch end: reshuffled
+    assert live.epoch == epoch + 1 and live.order is not snap["order"]
+    assert snap["pos"] == want["pos"] and snap["epoch"] == want["epoch"]
+    assert snap["rng"] == want["rng"]
+    np.testing.assert_array_equal(snap["order"], want["order"])
+    tr.invalidate_prefetch()
+    jtr.invalidate_prefetch()
+    for other in (oracle, jtr):
+        assert tr.provider.state_dict() == other.provider.state_dict()
+    state, info = tr.run_megabatch(state, prefetch=False)
+    o_state, o_info = oracle.run_megabatch(o_state)
+    j_state, j_info = jtr.run_megabatch(j_state, prefetch=False)
+    assert _strip([info]) == _strip([o_info])
+    _assert_same_state(state, o_state)
+    for k in E.EXACT:
+        assert info[k] == j_info[k], k
+    np.testing.assert_allclose(info["train_loss"], j_info["train_loss"], **E.TOL)
+    # the streams then draw the same ids, across the next epoch end too
+    n = o_stream.n + 1
+    ids = tr.provider.batcher.stream.take(n)
+    np.testing.assert_array_equal(ids, o_stream.take(n))
+    np.testing.assert_array_equal(ids, jtr.provider.batcher.stream.take(n))
+
+
+def test_token_provider_cursor_is_its_state_dict_apart_from_the_stream():
+    """The LM provider's snapshot cursor is its ``state_dict`` (the
+    stream's RNG state), a copy the stream's further draws do not move."""
+    prov = TokenProvider.make(64, 8, seed=3)
+    prov.fetch(4, 4)
+    cur = prov.cursor()
+    assert cur == prov.state_dict() and cur["rng"] is not prov.state_dict()["rng"]
+    before = repr(cur)
+    drawn = prov.fetch(4, 4)
+    assert repr(cur) == before and cur != prov.state_dict()
+    prov.load_state_dict(cur)
+    again = prov.fetch(4, 4)
+    for k in drawn:
+        np.testing.assert_array_equal(drawn[k], again[k])
 
 
 def test_stale_prefetch_discarded_on_mismatch():

@@ -8,8 +8,8 @@
   shards; children lie inside their parents and name them, worker spans
   carry their shard and the dispatch span; all spans of a mega-batch share
   its index;
-* the counters — ``staging_log`` is the plan/pack/upload spans' durations
-  to the bit, and the sequential path holds one staging slot at a time,
+* the counters — ``staging_log`` is the snapshot/plan/pack/upload spans'
+  durations to the bit (the snapshot's only on a prefetch, else 0.0), and the sequential path holds one staging slot at a time,
   ``rows``/``live_rows`` the rounds' rows and the plan's samples,
   ``copy_bytes`` what crossed devices;
 * the launcher's ``--trace-out``.
@@ -37,15 +37,18 @@ from repro_torch.utils import trace
 R, B_MAX, MEGA, N_MB = 4, 16, 6, 3
 CPU4 = ("cpu",) * 4
 
-# the spans every mega-batch opens once, and those it opens once a shard
+# the spans every mega-batch opens once, those it opens once a shard, and
+# the one a staging ahead of its mega-batch (the prefetch) opens
 ONCE = {"trainer.megabatch", "trainer.stage", "trainer.plan", "trainer.pack",
         "trainer.upload", "trainer.dispatch", "trainer.adapt", "trainer.collect",
         "trainer.barrier", "trainer.guard", "trainer.merge", "trainer.merge.norms",
         "trainer.result"}
 PER_SHARD = {"trainer.pack.shard", "trainer.dispatch.shard"}
+AHEAD = {"trainer.snapshot"}
 
 PARENT = {
-    "trainer.stage": "trainer.megabatch", "trainer.plan": "trainer.stage",
+    "trainer.stage": "trainer.megabatch", "trainer.snapshot": "trainer.stage",
+    "trainer.plan": "trainer.stage",
     "trainer.pack": "trainer.stage", "trainer.upload": "trainer.stage",
     "trainer.pack.shard": "trainer.pack", "trainer.dispatch": "trainer.megabatch",
     "trainer.dispatch.shard": "trainer.dispatch", "trainer.collect": "trainer.megabatch",
@@ -112,7 +115,10 @@ def test_every_megabatch_gives_one_of_each_span(overlap, mesh):
         names = [s.name for s in group]
         assert {n: names.count(n) for n in ONCE} == dict.fromkeys(ONCE, 1), mb
         assert {n: names.count(n) for n in PER_SHARD} == dict.fromkeys(PER_SHARD, n_shards)
-        assert set(names) == ONCE | PER_SHARD
+        # mega-batch 0 is staged when it runs; the pipeline stages the rest ahead
+        ahead = overlap and mb > 0
+        assert {n: names.count(n) for n in AHEAD} == dict.fromkeys(AHEAD, int(ahead))
+        assert set(names) == ONCE | PER_SHARD | (AHEAD if ahead else set())
     evals = [s for s in spans if s.name == "trainer.eval"]
     collects = [s for s in spans if s.name == "trainer.eval.collect"]
     assert len(evals) == len(collects) == N_MB
@@ -151,6 +157,8 @@ def _assert_log_is_the_spans(log, spans, n_mb):
         assert e["plan_s"] == one["trainer.plan"].seconds
         assert e["pack_s"] == one["trainer.pack"].seconds
         assert e["upload_s"] == one["trainer.upload"].seconds
+        snap = one.get("trainer.snapshot")
+        assert e["snapshot_s"] == (0.0 if snap is None else snap.seconds)
         assert e["bytes"] > 0
 
 
@@ -159,6 +167,39 @@ def _assert_log_is_the_spans(log, spans, n_mb):
 def test_staging_log_is_the_staging_spans(overlap, mesh):
     tr, _, spans = _run(overlap, mesh)
     _assert_log_is_the_spans(list(tr.staging_log), spans, N_MB)
+
+
+@pytest.mark.parametrize("overlap,mesh", PATHS)
+def test_a_snapshot_span_opens_once_a_prefetch(overlap, mesh):
+    """The cursor snapshot is a ``trainer.snapshot`` span inside the
+    ``trainer.stage`` of each staging ahead of its mega-batch, and of no
+    other; its seconds are the log entry's ``snapshot_s``, 0.0 for a
+    staging that took none. A prefetch revoked by a stale (b, lr) is staged
+    again without one."""
+    tr, _, spans = _run(overlap, mesh)
+    by_id = {s.id: s for s in spans}
+    stages = [s for s in spans if s.name == "trainer.stage"]
+    snaps = [s for s in spans if s.name == "trainer.snapshot"]
+    ahead = [s for s in stages if s.megabatch != by_id[s.parent].megabatch]
+    assert len(ahead) == (N_MB - 1 if overlap else 0)
+    assert sorted(by_id[s.parent].id for s in snaps) == sorted(s.id for s in ahead)
+    log = {e["megabatch"]: e["snapshot_s"] for e in tr.staging_log}
+    for s in snaps:
+        assert log[s.megabatch] == s.seconds > 0
+    assert [log[s.megabatch] for s in stages if s not in ahead] == \
+        [0.0] * (N_MB - len(ahead))
+    if not overlap:
+        return
+    tr, _ = _trainer(overlap, mesh)
+    try:
+        state, _ = tr.run_megabatch(tr.init_state(), prefetch=True)
+        state.lr = state.lr * 0.5                     # the staged plan goes stale
+        trace.clear()
+        tr.run_megabatch(state)
+    finally:
+        tr.close()
+    assert [s.name for s in trace.spans()].count("trainer.snapshot") == 0
+    assert tr.staging_log[-1]["snapshot_s"] == 0.0
 
 
 @pytest.mark.parametrize("mesh", [None, CPU4], ids=["vmap", "sharded"])
@@ -243,7 +284,7 @@ def test_each_span_is_a_profiler_range_while_one_records():
         if e.name.startswith("trainer."):
             ranges[e.name] = ranges.get(e.name, 0) + 1
     assert ranges == ours
-    assert set(ours) == ONCE | PER_SHARD | {"trainer.eval", "trainer.eval.collect"}
+    assert set(ours) == ONCE | PER_SHARD | AHEAD | {"trainer.eval", "trainer.eval.collect"}
 
 
 def test_no_profiler_no_record_function(monkeypatch):
